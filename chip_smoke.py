@@ -1,0 +1,483 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port of PipeBoost on one NVIDIA card (H100).
+
+Run from the root of a checkout, on a machine with the card and the CUDA
+toolkit:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result line):
+
+1. Card: name, device count, ``nvidia-smi`` name and power limit.
+2. Build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
+   and print the ``ptxas -v`` register, shared-memory and spill lines.
+3. Kernels against their plain PyTorch versions at the serving path's
+   shapes (bf16), each output held against the plain version computed in
+   float32 from the same bf16 inputs: attention within 2e-2 absolute (sum
+   order plus one bf16 rounding of the output), the LoRA merge within one
+   bf16 ulp of |W'|.  Each kernel is timed with CUDA events over many
+   launches on inputs rotated through more than the 50 MB L2 cache,
+   beside its plain version, one PyTorch library call (``library_ms``,
+   a yardstick the port never calls) and its bound: the larger of the
+   bytes it must move over 3.35 TB/s and its operations over the peak
+   rate of their type (989 TFLOP/s bf16, 67 TFLOP/s float32).
+4. Model: the same weights and teacher-forced tokens through prefill and 4
+   zero-copy decode steps, once through the kernels and once through the
+   plain versions, for pipeboost-opt-1.3b at full width (24 layers) and
+   qwen3-1.7b at full width with depth cut to 4 layers.
+5. End to end: ``repro_torch.launch.serve`` (PipeBoostEngine over 4
+   logical devices + ServingEngine with 2 rank-16 adapters) serves 8
+   requests of 64-512 prompt tokens and 32 new tokens each on
+   pipeboost-opt-1.3b at full width, max_len 1024, 4 slots.  Launch counts
+   are reset just before and read just after; every kernel must have run.
+
+The line before the last is one JSON object ``{"kernels": [...]}``; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+ATTN_TOL = 2e-2
+LOGIT_REL_TOL = 2.5e-2       # model logits: share of max |plain logit|
+L2_BYTES = 50 * 2 ** 20
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeError(msg)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    require(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+def time_ms(torch, label: str, calls, iters: int):
+    """(device ms, host-paced ms) of one call, over ``iters`` calls that
+    rotate through ``calls`` (distinct inputs, so the L2 cache does not
+    hold them), after a warm-up.  Keep ``iters`` times the launches of one
+    call well under the device's launch queue (about a thousand), or the
+    host blocks behind the spin.
+
+    Host-paced: CUDA events around the calls as an eager loop issues them,
+    so host time between launches counts.  Device: the same events, but a
+    spin kernel first holds the stream for longer than the host takes to
+    issue the calls, so the launches reach the device back to back and the
+    events measure the device's work alone."""
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def run(spin_s: float):
+        if spin_s:
+            torch.cuda._sleep(int(spin_s * 2e9))   # >= spin_s at <= 2 GHz
+        t0 = time.perf_counter()
+        start.record()
+        for i in range(iters):
+            calls[i % len(calls)]()
+        end.record()
+        issue_s = time.perf_counter() - t0
+        end.synchronize()
+        if spin_s and issue_s >= spin_s:
+            print(f"  note: issuing {label} took {issue_s:.3f} s, longer "
+                  f"than the {spin_s:.3f} s spin: its device time is an "
+                  f"upper bound")
+        return start.elapsed_time(end) / iters, issue_s
+
+    host_ms, issue_s = run(0.0)
+    return run(3 * issue_s + 0.05)[0], host_ms
+
+
+def n_copies(nbytes: int) -> int:
+    return max(1, min(16, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_decode(torch, ops, dev, results):
+    g = torch.Generator(device=dev).manual_seed(10)
+    bf = torch.bfloat16
+
+    def make(B, C, Hq, Hkv, d, lens, fold, masked):
+        q = torch.randn((B, 1, Hq, d), generator=g, device=dev).to(bf)
+        k = torch.randn((B, C, Hkv, d), generator=g, device=dev).to(bf)
+        v = torch.randn((B, C, Hkv, d), generator=g, device=dev).to(bf)
+        kn = torch.randn((B, 1, Hkv, d), generator=g, device=dev).to(bf) \
+            if fold else None
+        vn = torch.randn((B, 1, Hkv, d), generator=g, device=dev).to(bf) \
+            if fold else None
+        sm = (torch.rand((B, C), generator=g, device=dev) > 0.25) \
+            if masked else None
+        return dict(q=q, k=k, v=v, lens=torch.tensor(lens, dtype=torch.int32,
+                                                     device=dev),
+                    kn=kn, vn=vn, sm=sm)
+
+    def run(x, plain=False):
+        f = (lambda t: None if t is None else t.float()) if plain \
+            else (lambda t: t)
+        return ops.decode_attention(f(x["q"]), f(x["k"]), f(x["v"]),
+                                    x["lens"], k_new=f(x["kn"]),
+                                    v_new=f(x["vn"]), slot_mask=x["sm"])
+
+    C = 1024
+    cases = {
+        "opt full cache + fold": (4, C, 32, 32, 64, [C - 1] * 4, True, False),
+        "opt ragged + fold": (4, C, 32, 32, 64, [0, 77, 600, C - 1], True,
+                              False),
+        "opt ragged": (4, C, 32, 32, 64, [0, 77, 600, C - 1], False, False),
+        "opt slot mask + fold": (4, C, 32, 32, 64, [0, 300, C - 1, C - 1],
+                                 True, True),
+        "qwen3 GQA ragged + fold": (4, C, 16, 8, 128, [0, 513, 900, C - 1],
+                                    True, False),
+        "qwen3 GQA slot mask": (4, C, 16, 8, 128, [5, 64, 1000, C - 1],
+                                False, True),
+    }
+    worst, timed = 0.0, None
+    for name, spec in cases.items():
+        x = make(*spec)
+        out = run(x)
+        torch.cuda.synchronize()
+        with ops.plain_versions():
+            ref = run(x, plain=True)
+        err = (out.float() - ref).abs().max().item()
+        print(f"  decode {name}: max|kernel - plain| = {err:.3e}")
+        require(err <= ATTN_TOL, f"decode {name}: {err} > {ATTN_TOL}")
+        worst = max(worst, err)
+        if timed is None:
+            timed = (spec, x)
+    spec, x = timed
+    B, C, Hq, Hkv, d, lens, fold, _ = spec
+    per_set = nbytes(x["k"], x["v"])
+    sets = [x] + [make(*spec) for _ in range(n_copies(per_set) - 1)]
+    ms, paced_ms = time_ms(torch, "decode kernel",
+                           [lambda s=s: run(s) for s in sets], 200)
+    with ops.plain_versions():
+        plain_ms, _ = time_ms(torch, "decode plain",
+                              [lambda s=s: run(s) for s in sets], 5)
+    # SDPA over the cache with the same length mask (one key fewer than
+    # the kernel, which also folds the new token)
+    lib_sets = []
+    for s in sets:
+        mask = (torch.arange(C, device=dev)[None, :]
+                < s["lens"][:, None])[:, None, None, :]
+        lib_sets.append((s["q"].transpose(1, 2).contiguous(),
+                         s["k"].transpose(1, 2).contiguous(),
+                         s["v"].transpose(1, 2).contiguous(), mask))
+    F = torch.nn.functional
+    library_ms, _ = time_ms(torch, "decode SDPA", [
+        lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2],
+                                                   attn_mask=a[3])
+        for a in lib_sets], 50)
+    valid = sum(lens)
+    moved = (nbytes(x["q"], x["kn"], x["vn"], x["lens"])   # read once
+             + 2 * valid * Hkv * d * 2                     # valid K/V rows
+             + B * Hq * d * 2)                             # out
+    flops = 4 * Hq * d * (valid + (B if fold else 0))
+    b_ms, b_by = bound(moved, flops, "bfloat16")
+    print(f"  decode timed case {tuple(spec[:5])}, lens {lens}: kernel "
+          f"{ms:.4f} ms (host-paced {paced_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})")
+    results["decode_attention"] = dict(max_abs_err=worst, ms=ms,
+                                       paced_ms=paced_ms, plain_ms=plain_ms,
+                                       bound_ms=b_ms, bound_by=b_by,
+                                       library_ms=library_ms)
+
+
+def check_flash(torch, ops, dev, results):
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+
+    def make(B, Sq, Sk, Hq, Hkv, d):
+        return [torch.randn(shape, generator=g, device=dev).to(bf)
+                for shape in ((B, Sq, Hq, d), (B, Sk, Hkv, d),
+                              (B, Sk, Hkv, d))]
+
+    def run(x, kw, plain=False):
+        f = (lambda t: t.float()) if plain else (lambda t: t)
+        return ops.flash_attention(f(x[0]), f(x[1]), f(x[2]), causal=True,
+                                   **kw)
+
+    cases = []
+    for tag, Hq, Hkv, d in (("opt", 32, 32, 64), ("qwen3", 16, 8, 128)):
+        for S in (128, 512):
+            cases.append((f"{tag} S={S} causal", (4, S, S, Hq, Hkv, d), {}))
+        cases.append((f"{tag} S=512 window 128", (4, 512, 512, Hq, Hkv, d),
+                      {"window": 128}))
+        cases.append((f"{tag} 128 queries at q_offset 512",
+                      (4, 128, 640, Hq, Hkv, d), {"q_offset": 512}))
+    worst = 0.0
+    for name, spec, kw in cases:
+        x = make(*spec)
+        out = run(x, kw)
+        torch.cuda.synchronize()
+        with ops.plain_versions():
+            ref = run(x, kw, plain=True)
+        err = (out.float() - ref).abs().max().item()
+        print(f"  flash {name}: max|kernel - plain| = {err:.3e}")
+        require(err <= ATTN_TOL, f"flash {name}: {err} > {ATTN_TOL}")
+        worst = max(worst, err)
+    spec = (4, 512, 512, 32, 32, 64)       # opt-1.3b prefill, bucket 512
+    B, Sq, Sk, Hq, Hkv, d = spec
+    sets = [make(*spec) for _ in range(n_copies(4 * B * Sq * Hq * d * 2))]
+    ms, paced_ms = time_ms(torch, "flash kernel",
+                           [lambda s=s: run(s, {}) for s in sets], 100)
+    with ops.plain_versions():
+        plain_ms, _ = time_ms(torch, "flash plain",
+                              [lambda s=s: run(s, {}) for s in sets], 2)
+    F = torch.nn.functional
+    lib_sets = [[t.transpose(1, 2).contiguous() for t in s] for s in sets]
+    library_ms, _ = time_ms(torch, "flash SDPA", [
+        lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2],
+                                                   is_causal=True)
+        for a in lib_sets], 50)
+    pairs = Sq * (Sq + 1) // 2               # causal (q, k) pairs per head
+    moved = 2 * nbytes(sets[0][0]) + nbytes(sets[0][1], sets[0][2])
+    flops = 4 * B * Hq * d * pairs
+    b_ms, b_by = bound(moved, flops, "bfloat16")
+    print(f"  flash timed case {spec} causal: kernel {ms:.4f} ms "
+          f"(host-paced {paced_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
+          f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    results["flash_attention"] = dict(max_abs_err=worst, ms=ms,
+                                      paced_ms=paced_ms, plain_ms=plain_ms,
+                                      bound_ms=b_ms, bound_by=b_by,
+                                      library_ms=library_ms)
+
+
+def check_lora(torch, ops, dev, results):
+    from repro_torch.kernels import lora_merge as lm
+    g = torch.Generator(device=dev).manual_seed(12)
+    L, D, r, scale = 24, 2048, 16, 2.0
+    W = (torch.randn((L, D, D), generator=g, device=dev) * 0.03).to(
+        torch.bfloat16)
+    A = torch.randn((L, D, r), generator=g, device=dev) * D ** -0.5
+    B = torch.randn((L, r, D), generator=g, device=dev) * 0.02
+    out = ops.lora_merge(W, A, B, scale)
+    torch.cuda.synchronize()
+    ref = lm.lora_merge_plain(W, A, B, scale)
+    diff = (out.float() - ref.float()).abs()
+    _, e = torch.frexp(ref.float().abs())
+    ulp = torch.ldexp(torch.ones_like(diff), e - 8)
+    err = diff.max().item()
+    n_over = int((diff > ulp).sum().item())
+    print(f"  lora L={L} {D}x{D} r={r}: max|kernel - plain| = {err:.3e}, "
+          f"elements beyond 1 bf16 ulp: {n_over}")
+    require(n_over == 0, f"lora merge: {n_over} elements beyond 1 ulp")
+    del out, ref, diff, ulp, e
+    ms, paced_ms = time_ms(torch, "lora kernel",
+                           [lambda: ops.lora_merge(W, A, B, scale)], 20)
+    plain_ms, _ = time_ms(torch, "lora plain",
+                          [lambda: lm.lora_merge_plain(W, A, B, scale)], 5)
+    A16, B16 = A.to(torch.bfloat16), B.to(torch.bfloat16)
+    library_ms, _ = time_ms(torch, "lora baddbmm",
+                            [lambda: torch.baddbmm(W, A16, B16, alpha=scale)],
+                            20)
+    moved = 2 * nbytes(W) + nbytes(A, B)
+    flops = L * D * D * (2 * r + 1)
+    b_ms, b_by = bound(moved, flops, "float32")
+    print(f"  lora timed: kernel {ms:.4f} ms (host-paced {paced_ms:.4f} "
+          f"ms), plain {plain_ms:.4f} ms, baddbmm {library_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    results["lora_merge"] = dict(max_abs_err=err, ms=ms, paced_ms=paced_ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the model, kernels against plain
+# ---------------------------------------------------------------------------
+
+def check_model(torch, ops, dev, cfg):
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = T.init_params(cfg, gen, device=dev)
+    B, S = 4, 192
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=dev)
+    last = torch.tensor([S - 1, 130, 64, 17], dtype=torch.int32, device=dev)
+    steps = torch.randint(0, cfg.vocab_size, (4, B), generator=gen,
+                          device=dev)
+
+    def run():
+        lg, cache = T.forward(cfg, params, {"tokens": toks}, mode="prefill",
+                              max_len=1024, last_index=last)
+        out = [lg]
+        for s in steps:
+            lg, cache = T.decode_step(cfg, params, {"tokens": s}, cache)
+            out.append(lg)
+        return torch.stack(out)
+
+    ops.reset_launch_counts()
+    kern = run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    with ops.plain_versions():
+        plain = run()
+    require(counts["flash_attention"] == cfg.n_layers
+            and counts["decode_attention"] == 4 * cfg.n_layers,
+            f"{cfg.name}: launches {counts}")
+    require(bool(torch.isfinite(kern).all()), f"{cfg.name}: non-finite")
+    err = (kern - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    print(f"  {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}): "
+          f"logits {tuple(kern.shape)}, max|kernel - plain| = {err:.3e} "
+          f"(max|logit| {scale:.3f}, bound {LOGIT_REL_TOL * scale:.3e}); "
+          f"greedy agreement {agree:.3f}")
+    require(err <= LOGIT_REL_TOL * scale,
+            f"{cfg.name}: logits differ by {err}")
+    del params, kern, plain
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 5: end to end
+# ---------------------------------------------------------------------------
+
+def end_to_end(torch, ops):
+    from repro_torch.launch import serve
+    argv = ["--arch", "pipeboost-opt-1.3b", "--devices", "4", "--requests",
+            "8", "--adapters", "2", "--new-tokens", "32", "--prompt-len",
+            "64-512", "--max-len", "1024", "--slots", "4", "--seed", "0"]
+    print(f"  python -m repro_torch.launch.serve {' '.join(argv)}")
+    ops.reset_launch_counts()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    cfg = res.cfg
+    require(cfg.n_layers == 24 and cfg.d_model == 2048, "not full width")
+    require(all(r.done and len(r.generated) == 32 for r in res.requests),
+            "not every request finished with 32 tokens")
+    require(all(0 <= t < cfg.padded_vocab
+                for r in res.requests for t in r.generated),
+            "token out of range")
+    require(sorted(res.ttft_s) == list(range(8)), "missing first tokens")
+    cs = res.cold_start
+    require(cs["loaded_bytes"] == cs["total_bytes"], "engine not loaded")
+    ttft = sorted(res.ttft_s.values())
+    print(f"  wall TTFT per request (s): "
+          f"{[round(res.ttft_s[i], 4) for i in range(8)]}; median "
+          f"{ttft[len(ttft) // 2]:.4f} s, max {ttft[-1]:.4f} s")
+    print(f"  decode {res.decode_tokens_per_s:.1f} tokens/s, wall "
+          f"{res.wall_s:.3f} s, time_to_ready {cs['time_to_ready']:.6f} s, "
+          f"peak device memory {res.peak_memory_bytes / 2**30:.2f} GiB")
+    print(f"  launches on the main path: {counts} "
+          f"({res.n_adapter_switches} adapter switches)")
+    for name, n in counts.items():
+        require(n > 0, f"{name} never launched on the main path")
+    return counts
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card visible; this script runs on the "
+              "card", file=sys.stderr)
+        return 2
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lora_merge as lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t_all = time.perf_counter()
+
+    print("== phase 1: card")
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    print(f"  {kind}; device count {torch.cuda.device_count()}; "
+          f"torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"  nvidia-smi: {smi}")
+
+    print("== phase 2: build")
+    t0 = time.perf_counter()
+    lib_dir = build.build()
+    build.load()
+    print(f"  built {len(build.sources())} sources into {lib_dir.name} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in build.build_log().splitlines():
+        if any(w in line for w in ("registers", "spill", "Compiling entry",
+                                   "error", "warning")):
+            print("  " + line.strip())
+
+    print("== phase 3: kernels against their plain versions")
+    results = {}
+    check_decode(torch, ops, dev, results)
+    check_flash(torch, ops, dev, results)
+    check_lora(torch, ops, dev, results)
+    torch.cuda.empty_cache()
+
+    print("== phase 4: model, kernels against plain versions")
+    check_model(torch, ops, dev, get_arch("pipeboost-opt-1.3b"))
+    check_model(torch, ops, dev,
+                dataclasses.replace(get_arch("qwen3-1.7b"), n_layers=4))
+
+    print("== phase 5: end to end")
+    counts = end_to_end(torch, ops)
+    print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s")
+
+    kernels = []
+    for mod in (dec, fa, lm):
+        name = mod.__name__.rsplit(".", 1)[1]
+        r = results[name]
+        kernels.append({"name": name, "route": "cuda", "source": mod.SOURCE,
+                        "replaces": mod.REPLACES, "launches": counts[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "kernel_ms": r["ms"], "host_paced_ms": r["paced_ms"],
+                        "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    print(f"nvidia-smi: {smi}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Exception:                   # any failed phase: no result line
+        traceback.print_exc()
+        sys.exit(1)

@@ -1,0 +1,310 @@
+"""Model assembly for the dense/GQA decoder (the port of
+``repro/models/transformer.py``, attention layers only).
+
+Parameters keep the reference's layout: per-layer weights stacked on a
+leading layer axis, ``params["blocks"]["attn"][name]`` of shape
+``(L, ...)``; caches are ``(L, B, C, Hkv, hd)`` with per-slot positions in
+``cache["pos"]``.  The layer stack runs as a Python loop (eager PyTorch has
+no ``scan`` to compile).
+
+Entry points:
+  * ``forward(..., mode="train")``   -> (logits (B,S,V) f32, aux)
+  * ``forward(..., mode="prefill")`` -> (last-token logits (B,V) f32, cache)
+  * ``decode_step(...)``             -> (logits (B,V) f32, cache)
+
+``decode_step`` is zero-copy: each layer only reads its cache slice and the
+current token's K/V row joins the softmax in the decode kernel; after the
+layer loop one in-place write puts every layer's row at ``pos % C``.  The
+cache passed in is updated in place — the analogue of the reference's
+donated cache — and returned.
+
+The MoE, SSM and recurrent layer kinds, M-RoPE and the audio family are
+not ported yet and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import (_ACTS, apply_rope, dense_init,
+                                       embed_init, rms_norm)
+
+Params = Dict[str, Any]
+Cache = Dict[str, Any]
+
+_TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                 "float16": torch.float16}
+
+
+def torch_dtype(cfg: ArchConfig) -> torch.dtype:
+    return _TORCH_DTYPES[cfg.dtype]
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """The port runs dense/GQA attention decoders only (so far)."""
+    kinds = set(cfg.layer_kinds())
+    if kinds != {"attn"} or cfg.mrope or cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name}: layer kinds {sorted(kinds)}, mrope={cfg.mrope}, "
+            f"family={cfg.family} — only dense/GQA attention is ported")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=None,
+                device="cuda") -> Params:
+    """Random weights from ``gen`` (a generator on ``device``)."""
+    check_supported(cfg)
+    dtype = dtype or torch_dtype(cfg)
+    L, D, hd = cfg.n_layers, cfg.d_model, cfg.resolved_head_dim
+    Hq, Hkv, V = cfg.n_heads, cfg.n_kv_heads, cfg.padded_vocab
+
+    def dense(*shape):
+        return dense_init(gen, shape, dtype, device)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    params: Params = {"embed": embed_init(gen, (V, D), dtype, device)}
+    if cfg.gated_mlp:
+        mlp = {"w_gate": dense(L, D, cfg.d_ff), "w_up": dense(L, D, cfg.d_ff),
+               "w_down": dense(L, cfg.d_ff, D)}
+    else:
+        mlp = {"w_up": dense(L, D, cfg.d_ff), "w_down": dense(L, cfg.d_ff, D)}
+    blk: Params = {
+        "ln1": ones(L, D), "wq": dense(L, D, Hq * hd),
+        "wk": dense(L, D, Hkv * hd), "wv": dense(L, D, Hkv * hd),
+        "wo": dense(L, Hq * hd, D), "ln2": ones(L, D), "mlp": mlp,
+    }
+    if cfg.qkv_bias:
+        blk.update(bq=zeros(L, Hq * hd), bk=zeros(L, Hkv * hd),
+                   bv=zeros(L, Hkv * hd))
+    if cfg.qk_norm:
+        blk.update(q_norm=ones(L, hd), k_norm=ones(L, hd))
+    params["blocks"] = {"attn": blk}
+    params["final_norm"] = ones(D)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense(D, V)
+    return params
+
+
+def layer_params(stacked: Params, i: int) -> Params:
+    """Layer ``i``'s view of the stacked per-layer params."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+# ---------------------------------------------------------------------------
+# Cache
+# ---------------------------------------------------------------------------
+
+def attn_cache_capacity(cfg: ArchConfig, max_len: int) -> int:
+    """Ring-buffer capacity: the window for local attention, else max_len."""
+    if cfg.attn_window > 0:
+        return min(max_len, cfg.attn_window)
+    return max_len
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
+               device="cuda") -> Cache:
+    check_supported(cfg)
+    dtype = dtype or torch_dtype(cfg)
+    C = attn_cache_capacity(cfg, max_len)
+    shape = (cfg.n_layers, batch, C, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
+            "attn": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                     "v": torch.zeros(shape, dtype=dtype, device=device)}}
+
+
+# ---------------------------------------------------------------------------
+# Per-layer forwards
+# ---------------------------------------------------------------------------
+
+def _apply_mlp(cfg, p, x):
+    act = _ACTS[cfg.act]
+    if cfg.gated_mlp:
+        h = act(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = act(x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+def _project_qkv(cfg, p, h):
+    B, S, _ = h.shape
+    hd = cfg.resolved_head_dim
+    q = h @ p["wq"]
+    k = h @ p["wk"]
+    v = h @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    return q, k, v
+
+
+def attn_layer_fwd(cfg, p, x, positions):
+    """Full-sequence attention layer (prefill attention runs the flash
+    kernel).  Returns (x, (k, v)) with the roped k/v (B, S, Hkv, hd) that
+    ``forward`` places into the cache."""
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = _project_qkv(cfg, p, h)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = attn_lib.attention(q, k, v, causal=cfg.causal,
+                           window=cfg.attn_window)
+    x = x + o.reshape(*x.shape[:2], -1) @ p["wo"]
+    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+    return x + _apply_mlp(cfg, p["mlp"], h2), (k, v)
+
+
+def _place_kv(dst, kv, cap: int) -> None:
+    """Write a prompt's k or v (B, S, Hkv, hd) into a zeroed cache slice
+    (B, cap, Hkv, hd).  A ring buffer smaller than the prompt keeps the
+    tail, rolled so that slot j holds the position p with p % cap == j
+    (decode writes at pos % cap, so the oldest entry is overwritten)."""
+    S = kv.shape[1]
+    if cap >= S:
+        dst[:, :S] = kv
+    else:
+        shift = (S - cap) % cap
+        dst.copy_(torch.roll(kv[:, S - cap:], shift, dims=1))
+
+
+def attn_layer_step(cfg, p, x, positions, k_cache, v_cache, cache_len):
+    """Zero-copy single-token step. x: (B, 1, D); caches (B, C, Hkv, hd),
+    only read; positions: (B, 1); cache_len: (B,) per-slot valid lengths.
+    Returns (x, k_row, v_row): the caller writes the (B, Hkv, hd) rows
+    once, after the layer loop.  A ring-buffered (windowed) cache masks the
+    slot the new row will overwrite: once the ring is full it holds
+    position pos - C, one step outside the window."""
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    q, k, v = _project_qkv(cfg, p, h)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    C = k_cache.shape[1]
+    valid_old = torch.clamp(cache_len, max=C)
+    slot_mask = None
+    if cfg.attn_window > 0:
+        j = torch.arange(C, device=x.device)[None, :]
+        p_len = cache_len[:, None]
+        slot_mask = (j < p_len) & ((p_len < C) | (j != p_len % C))
+    o = attn_lib.decode_attention_merged(q, k_cache, v_cache, valid_old,
+                                         k, v, kv_slot_mask=slot_mask)
+    x = x + o.reshape(x.shape[0], 1, -1) @ p["wo"]
+    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+    return x + _apply_mlp(cfg, p["mlp"], h2), k[:, 0], v[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Full-model forward
+# ---------------------------------------------------------------------------
+
+def embed_tokens(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x (B,S,D), positions (B,S))."""
+    x = params["embed"][batch["tokens"]]
+    B, S = x.shape[:2]
+    return x, torch.arange(S, device=x.device)[None, :].expand(B, S)
+
+
+def unembed(cfg, params, x) -> torch.Tensor:
+    """float32 logits over the padded vocab; the product runs in float32
+    from upcast operands, as the reference's preferred_element_type."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x.float() @ head.float()
+
+
+def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
+            mode: str = "train", max_len: Optional[int] = None,
+            last_index=None) -> Tuple[torch.Tensor, Any]:
+    """Full-sequence forward.
+
+    mode="train":   returns (logits (B,S,V) f32, aux_loss scalar)
+    mode="prefill": returns (last logits (B,V) f32, cache)
+
+    ``last_index`` (B,) int, prefill only: per-row index of the true last
+    prompt token of right-padded (bucketed) prompts.  Logits are gathered
+    there and ``cache["pos"]`` is ``last_index + 1``, so decode masks the
+    pad K/V.
+    """
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"mode {mode!r}")
+    check_supported(cfg)
+    x, positions = embed_tokens(cfg, params, batch)
+    B, S = x.shape[:2]
+    want_cache = mode == "prefill"
+    cap = attn_cache_capacity(cfg, max_len or S)
+    L, Hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    if want_cache:
+        kc = torch.zeros((L, B, cap, Hkv, hd), dtype=x.dtype,
+                         device=x.device)
+        vc = torch.zeros_like(kc)
+    blocks = params["blocks"]["attn"]
+    for i in range(L):
+        x, (k, v) = attn_layer_fwd(cfg, layer_params(blocks, i), x,
+                                   positions)
+        if want_cache:
+            _place_kv(kc[i], k, cap)
+            _place_kv(vc[i], v, cap)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+
+    if mode == "train":
+        return unembed(cfg, params, x), torch.zeros((), device=x.device)
+
+    if last_index is not None:
+        li = torch.as_tensor(last_index, dtype=torch.int32, device=x.device)
+        x_last = x[torch.arange(B, device=x.device), li.long()]
+        logits = unembed(cfg, params, x_last[:, None, :])[:, 0, :]
+        pos = li + 1
+    else:
+        logits = unembed(cfg, params, x[:, -1:, :])[:, 0, :]
+        pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    return logits, {"pos": pos, "attn": {"k": kc, "v": vc}}
+
+
+def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
+                cache: Cache) -> Tuple[torch.Tensor, Cache]:
+    """One autoregressive step; updates ``cache`` in place.
+
+    batch: {"tokens": (B,) int}.
+    Returns (logits (B, V) f32, cache) with ``pos`` advanced by one.
+    """
+    check_supported(cfg)
+    toks = batch["tokens"].reshape(-1)
+    x = params["embed"][toks][:, None, :]
+    B = toks.shape[0]
+    pos = cache["pos"]
+    if pos.dim() == 0:
+        pos = pos.expand(B)
+    pos = pos.to(torch.int32).contiguous()
+    positions = pos[:, None]
+    kc, vc = cache["attn"]["k"], cache["attn"]["v"]
+    C = kc.shape[2]
+    blocks = params["blocks"]["attn"]
+    k_rows, v_rows = [], []
+    for i in range(cfg.n_layers):
+        x, kn, vn = attn_layer_step(cfg, layer_params(blocks, i), x,
+                                    positions, kc[i], vc[i], pos)
+        k_rows.append(kn)
+        v_rows.append(vn)
+    # the one post-loop row write of every layer, in place at pos % C
+    slot = (pos % C).long()
+    bidx = torch.arange(B, device=x.device)
+    kc[:, bidx, slot] = torch.stack(k_rows)
+    vc[:, bidx, slot] = torch.stack(v_rows)
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    logits = unembed(cfg, params, x)[:, 0, :]
+    return logits, {"pos": pos + 1, "attn": {"k": kc, "v": vc}}

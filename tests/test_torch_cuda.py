@@ -1,0 +1,169 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and needs an NVIDIA Hopper card and
+``nvcc``; the ``card`` fixture skips them where there is none (decided
+inside the fixture, never at import time).  Run them on the card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: float32 kernels within 2e-5 of the plain version (sum order
+only); bfloat16 attention within 2e-2 of the plain version computed in
+float32 from the same bf16 inputs (sum order plus one bf16 rounding of the
+output); a bf16 LoRA merge within one bf16 ulp of |W'|.
+"""
+import pytest
+import torch
+
+from repro_torch.configs.base import get_arch
+from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import lora_merge as lm
+from repro_torch.kernels import ops
+from repro_torch.models import transformer as T
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc (an H100)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _rand(shape, dtype, dev, gen, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+def _gen(dev, seed=0):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,C,Hq,Hkv,d,fold,masked", [
+    (4, 1024, 32, 32, 64, True, False),      # opt-1.3b decode
+    (4, 1024, 16, 8, 128, True, False),      # qwen3-1.7b GQA decode
+    (3, 300, 8, 2, 64, False, False),        # ragged C, no fold
+    (3, 96, 28, 4, 128, True, True),         # group of 7, ring slot mask
+    (2, 77, 8, 8, 64, False, True),          # slot mask, no fold
+])
+def test_decode_kernel_matches_plain(card, dtype, B, C, Hq, Hkv, d, fold,
+                                     masked):
+    g = _gen(card)
+    q = _rand((B, 1, Hq, d), dtype, card, g)
+    k = _rand((B, C, Hkv, d), dtype, card, g)
+    v = _rand((B, C, Hkv, d), dtype, card, g)
+    kn = _rand((B, 1, Hkv, d), dtype, card, g) if fold else None
+    vn = _rand((B, 1, Hkv, d), dtype, card, g) if fold else None
+    lens = torch.randint(1, C - 1, (B,), generator=g, device=card,
+                         dtype=torch.int32)
+    lens[0] = 0
+    lens[-1] = C - 1
+    sm = (torch.rand((B, C), generator=g, device=card) > 0.3) \
+        if masked else None
+    n0 = dec.launches
+    out = ops.decode_attention(q, k, v, lens, k_new=kn, v_new=vn,
+                               slot_mask=sm)
+    torch.cuda.synchronize()
+    assert dec.launches == n0 + 1
+    f = (lambda t: None if t is None else t.float())
+    with ops.plain_versions():
+        ref = ops.decode_attention(q.float(), k.float(), v.float(), lens,
+                                   k_new=f(kn), v_new=f(vn), slot_mask=sm)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert (out.float() - ref).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,Sk,Hq,Hkv,d,window,q_offset", [
+    (4, 512, 512, 32, 32, 64, 0, 0),         # opt-1.3b prefill
+    (4, 128, 128, 16, 8, 128, 0, 0),         # qwen3-1.7b GQA prefill
+    (2, 300, 300, 16, 8, 128, 64, 0),        # window, ragged edge
+    (2, 100, 612, 8, 2, 64, 0, 512),         # continued prefill
+])
+def test_flash_kernel_matches_plain(card, dtype, B, S, Sk, Hq, Hkv, d,
+                                    window, q_offset):
+    g = _gen(card, 1)
+    q = _rand((B, S, Hq, d), dtype, card, g)
+    k = _rand((B, Sk, Hkv, d), dtype, card, g)
+    v = _rand((B, Sk, Hkv, d), dtype, card, g)
+    n0 = fa.launches
+    out = ops.flash_attention(q, k, v, causal=True, window=window,
+                              q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.launches == n0 + 1
+    with ops.plain_versions():
+        ref = ops.flash_attention(q.float(), k.float(), v.float(),
+                                  causal=True, window=window,
+                                  q_offset=q_offset)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert (out.float() - ref).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("L,Din,Dout,r", [(24, 2048, 2048, 16),
+                                          (3, 300, 200, 8)])
+def test_lora_kernel_matches_plain(card, dtype, L, Din, Dout, r):
+    g = _gen(card, 2)
+    W = _rand((L, Din, Dout), dtype, card, g, 0.05)
+    A = _rand((L, Din, r), torch.float32, card, g, Din ** -0.5)
+    B = _rand((L, r, Dout), torch.float32, card, g, 0.02)
+    out = ops.lora_merge(W, A, B, 2.0)
+    torch.cuda.synchronize()
+    ref = lm.lora_merge_plain(W, A, B, 2.0)
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= TOL[dtype]
+    else:
+        _, e = torch.frexp(ref.float().abs())
+        assert bool((diff <= torch.ldexp(torch.ones_like(diff), e - 8)).all())
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(card):
+    q = torch.zeros((2, 4, 80), device=card, dtype=torch.bfloat16)
+    k = torch.zeros((2, 4, 16, 80), device=card, dtype=torch.bfloat16)
+    lens = torch.zeros((2,), device=card, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        dec.decode_attention(q, k, k, lens)                 # head dim 80
+    with pytest.raises(ValueError):
+        dec.decode_attention(q[..., :64], k[..., :64].float(),
+                             k[..., :64].float(), lens)      # mixed dtypes
+    with pytest.raises(ValueError):
+        lm.lora_merge(torch.zeros((1, 8, 12), device=card),
+                      torch.zeros((1, 8, 2), device=card),
+                      torch.zeros((1, 2, 12), device=card), 1.0)  # Dout % 8
+
+
+def test_model_kernels_match_plain(card):
+    """A small bf16 model with kernel-sized heads: prefill + 4 zero-copy
+    decode steps through the kernels against the plain versions."""
+    cfg = get_arch("qwen3-1.7b").reduced(n_layers=2, d_model=256, n_heads=4,
+                                         n_kv_heads=2, head_dim=64,
+                                         dtype="bfloat16")
+    params = T.init_params(cfg, _gen(card, 3), device=card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=_gen(card, 4),
+                         device=card)
+    steps = torch.randint(0, cfg.vocab_size, (4, 2), generator=_gen(card, 5),
+                          device=card)
+
+    def run():
+        lg, cache = T.forward(cfg, params, {"tokens": toks}, mode="prefill",
+                              max_len=64)
+        out = [lg]
+        for s in steps:
+            lg, cache = T.decode_step(cfg, params, {"tokens": s}, cache)
+            out.append(lg)
+        return torch.stack(out)
+
+    ops.reset_launch_counts()
+    with_kernels = run()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 and counts["decode_attention"] == 8
+    with ops.plain_versions():
+        plain = run()
+    assert ops.launch_counts() == counts
+    assert (with_kernels - plain).abs().max().item() <= 5e-2
