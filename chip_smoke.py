@@ -10,26 +10,37 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Card: name, device count, ``nvidia-smi`` name and power limit.
 2. Build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   and print the ``ptxas -v`` register, shared-memory and spill lines.
+   (one ``nvcc`` per source, all started together) and print the
+   ``ptxas -v`` register, shared-memory and spill lines.
 3. Kernels against their plain PyTorch versions at the serving path's
    shapes (bf16), each output held against the plain version computed in
    float32 from the same bf16 inputs: attention within 2e-2 absolute (sum
    order plus one bf16 rounding of the output), the LoRA merge within one
-   bf16 ulp of |W'|.  Each kernel is timed with CUDA events over many
-   launches on inputs rotated through more than the 50 MB L2 cache,
-   beside its plain version, one PyTorch library call (``library_ms``,
-   a yardstick the port never calls) and its bound: the larger of the
+   bf16 ulp of |W'|, the SSD scan's y within 2% of max |plain y| (one bf16
+   rounding plus sum order) and its float32 state within 1e-4 of max
+   |plain state| (sum order only).  Each kernel is timed with CUDA events
+   over many launches on inputs rotated through more than the 50 MB L2
+   cache, beside its plain version, one PyTorch library call where one
+   computes the same function (``library_ms``, a yardstick the port never
+   calls; none does for the SSD scan) and its bound: the larger of the
    bytes it must move over 3.35 TB/s and its operations over the peak
    rate of their type (989 TFLOP/s bf16, 67 TFLOP/s float32).
 4. Model: the same weights and teacher-forced tokens through prefill and 4
    zero-copy decode steps, once through the kernels and once through the
-   plain versions, for pipeboost-opt-1.3b at full width (24 layers) and
-   qwen3-1.7b at full width with depth cut to 4 layers.
+   plain versions, for pipeboost-opt-1.3b at full width (24 layers),
+   qwen3-1.7b at full width with depth cut to 4 layers, and mamba2-780m
+   at full width (48 layers; its 4 rows prefill at one exact length, since
+   pad tokens would enter the SSM state) in float32, held to the limit,
+   and in bf16, measured only: random bf16 weights through 48 SSM layers
+   amplify one-ulp differences of a layer's output past any useful
+   limit.
 5. End to end: ``repro_torch.launch.serve`` (PipeBoostEngine over 4
-   logical devices + ServingEngine with 2 rank-16 adapters) serves 8
-   requests of 64-512 prompt tokens and 32 new tokens each on
-   pipeboost-opt-1.3b at full width, max_len 1024, 4 slots.  Launch counts
-   are reset just before and read just after; every kernel must have run.
+   logical devices + ServingEngine, 4 slots, max_len 1024) serves 8
+   requests of 64-512 prompt tokens and 32 new tokens each, at full width:
+   pipeboost-opt-1.3b with 2 rank-16 adapters, then mamba2-780m with none.
+   Launch counts are reset just before and read just after each run;
+   every kernel of that run's path must have run (the SSD scan once per
+   prefill and layer).
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -51,6 +62,8 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 ATTN_TOL = 2e-2
+SSD_Y_TOL = 2e-2             # SSD y: share of max |plain y|
+SSD_STATE_TOL = 1e-4         # SSD final state: share of max |plain state|
 LOGIT_REL_TOL = 2.5e-2       # model logits: share of max |plain logit|
 L2_BYTES = 50 * 2 ** 20
 
@@ -284,6 +297,7 @@ def check_flash(torch, ops, dev, results):
 
 def check_lora(torch, ops, dev, results):
     from repro_torch.kernels import lora_merge as lm
+    from repro_torch.kernels import ssd_scan as ssd
     g = torch.Generator(device=dev).manual_seed(12)
     L, D, r, scale = 24, 2048, 16, 2.0
     W = (torch.randn((L, D, D), generator=g, device=dev) * 0.03).to(
@@ -321,18 +335,92 @@ def check_lora(torch, ops, dev, results):
                                  bound_by=b_by, library_ms=library_ms)
 
 
+def check_ssd(torch, ops, dev, results):
+    from repro_torch.kernels import ssd_scan as ss
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(13)
+    H, P, N = 48, 64, 128                    # mamba2-780m
+    di = H * P
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, H, device=dev)))
+
+    def make(B, S):
+        """x, B and C as strided slices of one conv_out, as in the model."""
+        conv_out = F.silu(torch.randn((B, S, di + 2 * N), generator=g,
+                                      device=dev)).to(torch.bfloat16)
+        dt = F.softplus(torch.randn((B, S, H), generator=g, device=dev))
+        return (conv_out[..., :di].reshape(B, S, H, P), dt, A,
+                conv_out[..., di:di + N], conv_out[..., di + N:])
+
+    worst = 0.0
+    for B in (1, 4):
+        for S in (64, 300, 512):
+            x = make(B, S)
+            y, st = ops.ssd_scan(*x)
+            torch.cuda.synchronize()
+            with ops.plain_versions():
+                yr, sr = ops.ssd_scan(x[0].float(), x[1], x[2],
+                                      x[3].float(), x[4].float())
+            ey = (y.float() - yr).abs().max().item()
+            es = (st - sr).abs().max().item()
+            ty = SSD_Y_TOL * yr.abs().max().item()
+            ts = SSD_STATE_TOL * sr.abs().max().item()
+            print(f"  ssd B={B} S={S}: max|y kernel - plain| = {ey:.3e} "
+                  f"(limit {ty:.3e}), max|state kernel - plain| = "
+                  f"{es:.3e} (limit {ts:.3e})")
+            require(ey <= ty and es <= ts, f"ssd B={B} S={S}: y {ey} > {ty} "
+                    f"or state {es} > {ts}")
+            require(bool(torch.isfinite(y.float()).all()),
+                    f"ssd B={B} S={S}: non-finite y")
+            worst = max(worst, ey)
+    B, S = 1, 512                            # one 512-token prefill
+    x = make(B, S)
+    sets = [x] + [make(B, S) for _ in range(
+        n_copies(nbytes(x[0], x[1], x[3], x[4])) - 1)]
+    ms, paced_ms = time_ms(torch, "ssd kernel",
+                           [lambda s=s: ops.ssd_scan(*s) for s in sets], 200)
+    with ops.plain_versions():
+        plain_ms, _ = time_ms(torch, "ssd plain",
+                              [lambda s=s: ops.ssd_scan(*s) for s in sets], 5)
+    # bytes: each input read once, y and the final state written once;
+    # operations: per chunk of q rows (the kernel's chunk), the causal
+    # pairs of C B^T once, and per head G x over the pairs, C state and
+    # the state update x^T B
+    moved = (2 * nbytes(x[0]) + nbytes(x[1], x[2], x[3], x[4])
+             + B * H * P * N * 4)
+    flops = 0
+    for t0 in range(0, S, ss.CHUNK):
+        q = min(ss.CHUNK, S - t0)
+        pairs = q * (q + 1) // 2
+        flops += B * (2 * N * pairs + H * (2 * P * pairs + 4 * q * P * N))
+    b_ms, b_by = bound(moved, flops, "bfloat16")
+    print(f"  ssd timed case B={B} S={S} H={H} P={P} N={N}: kernel "
+          f"{ms:.4f} ms (host-paced {paced_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, no library call, bound {b_ms:.4f} ms "
+          f"({b_by}; {moved / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    results["ssd_scan"] = dict(max_abs_err=worst, ms=ms, paced_ms=paced_ms,
+                               plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the model, kernels against plain
 # ---------------------------------------------------------------------------
 
-def check_model(torch, ops, dev, cfg):
+def check_model(torch, ops, dev, cfg, gated=True):
+    """Kernels against plain versions through the whole model; with
+    ``gated=False`` the logit difference is measured and printed but not
+    held to the limit (the launch counts still are)."""
     from repro_torch.models import transformer as T
     gen = torch.Generator(device=dev).manual_seed(1)
     params = T.init_params(cfg, gen, device=dev)
     B, S = 4, 192
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                          device=dev)
-    last = torch.tensor([S - 1, 130, 64, 17], dtype=torch.int32, device=dev)
+    ssm = cfg.layer_kinds() == ["ssm"] * cfg.n_layers
+    # attention rows end at ragged true lengths (right-padded, as the
+    # bucketed prefill sends them); SSM rows at one exact length
+    last = None if ssm else torch.tensor([S - 1, 130, 64, 17],
+                                         dtype=torch.int32, device=dev)
     steps = torch.randint(0, cfg.vocab_size, (4, B), generator=gen,
                           device=dev)
 
@@ -351,18 +439,22 @@ def check_model(torch, ops, dev, cfg):
     counts = ops.launch_counts()
     with ops.plain_versions():
         plain = run()
-    require(counts["flash_attention"] == cfg.n_layers
-            and counts["decode_attention"] == 4 * cfg.n_layers,
-            f"{cfg.name}: launches {counts}")
+    L = cfg.n_layers
+    want = ({"flash_attention": 0, "decode_attention": 0, "ssd_scan": L}
+            if ssm else
+            {"flash_attention": L, "decode_attention": 4 * L, "ssd_scan": 0})
+    require(all(counts[k] == n for k, n in want.items()),
+            f"{cfg.name}: launches {counts}, expected {want}")
     require(bool(torch.isfinite(kern).all()), f"{cfg.name}: non-finite")
     err = (kern - plain).abs().max().item()
     scale = plain.abs().max().item()
     agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    print(f"  {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}): "
+    print(f"  {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.dtype}{'' if gated else '; measured, not gated'}): "
           f"logits {tuple(kern.shape)}, max|kernel - plain| = {err:.3e} "
           f"(max|logit| {scale:.3f}, bound {LOGIT_REL_TOL * scale:.3e}); "
-          f"greedy agreement {agree:.3f}")
-    require(err <= LOGIT_REL_TOL * scale,
+          f"greedy agreement {agree:.3f}; launches {counts}")
+    require(not gated or err <= LOGIT_REL_TOL * scale,
             f"{cfg.name}: logits differ by {err}")
     del params, kern, plain
     torch.cuda.empty_cache()
@@ -372,18 +464,24 @@ def check_model(torch, ops, dev, cfg):
 # phase 5: end to end
 # ---------------------------------------------------------------------------
 
-def end_to_end(torch, ops):
+def end_to_end(torch, ops, arch, adapters, kernels):
+    """Serve 8 requests of ``arch`` at full width; ``kernels`` are the
+    kernels of its path, each of which must launch (the others must
+    not)."""
+    from repro_torch.configs.base import get_arch
     from repro_torch.launch import serve
-    argv = ["--arch", "pipeboost-opt-1.3b", "--devices", "4", "--requests",
-            "8", "--adapters", "2", "--new-tokens", "32", "--prompt-len",
-            "64-512", "--max-len", "1024", "--slots", "4", "--seed", "0"]
+    argv = ["--arch", arch, "--devices", "4", "--requests", "8",
+            "--adapters", str(adapters), "--new-tokens", "32",
+            "--prompt-len", "64-512", "--max-len", "1024", "--slots", "4",
+            "--seed", "0"]
     print(f"  python -m repro_torch.launch.serve {' '.join(argv)}")
     ops.reset_launch_counts()
     res = serve.main(argv)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    cfg = res.cfg
-    require(cfg.n_layers == 24 and cfg.d_model == 2048, "not full width")
+    cfg, full = res.cfg, get_arch(arch)
+    require(cfg.n_layers == full.n_layers and cfg.d_model == full.d_model,
+            "not full width")
     require(all(r.done and len(r.generated) == 32 for r in res.requests),
             "not every request finished with 32 tokens")
     require(all(0 <= t < cfg.padded_vocab
@@ -400,9 +498,18 @@ def end_to_end(torch, ops):
           f"{res.wall_s:.3f} s, time_to_ready {cs['time_to_ready']:.6f} s, "
           f"peak device memory {res.peak_memory_bytes / 2**30:.2f} GiB")
     print(f"  launches on the main path: {counts} "
-          f"({res.n_adapter_switches} adapter switches)")
+          f"({res.n_adapter_switches} adapter switches, "
+          f"{int(res.hotpath['n_prefill_calls'])} prefill calls, "
+          f"{int(res.hotpath['n_decode_steps'])} decode steps)")
     for name, n in counts.items():
-        require(n > 0, f"{name} never launched on the main path")
+        if name in kernels:
+            require(n > 0, f"{name} never launched on the main path")
+        else:
+            require(n == 0, f"{name} launched off the {arch} path")
+    if "ssd_scan" in kernels:       # one scan per prefill and layer
+        n_prefills = int(res.hotpath["n_prefill_calls"])
+        require(n_prefills == 8 and counts["ssd_scan"] == 8 * cfg.n_layers,
+                f"{n_prefills} prefill calls, {counts['ssd_scan']} scans")
     return counts
 
 
@@ -417,6 +524,7 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lora_merge as lm
+    from repro_torch.kernels import ssd_scan as ssd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -446,19 +554,33 @@ def main() -> int:
     check_decode(torch, ops, dev, results)
     check_flash(torch, ops, dev, results)
     check_lora(torch, ops, dev, results)
+    check_ssd(torch, ops, dev, results)
     torch.cuda.empty_cache()
 
     print("== phase 4: model, kernels against plain versions")
     check_model(torch, ops, dev, get_arch("pipeboost-opt-1.3b"))
     check_model(torch, ops, dev,
                 dataclasses.replace(get_arch("qwen3-1.7b"), n_layers=4))
+    # mamba2 at full width and depth, gated in float32: with random bf16
+    # weights the 48-layer SSM stack amplifies a one-ulp change of one
+    # layer's y to a large share of the logits (a change of the plain
+    # scan's own sum order does the same), so the bf16 run, the serving
+    # dtype, is measured only
+    mamba2 = get_arch("mamba2-780m")
+    check_model(torch, ops, dev, dataclasses.replace(mamba2,
+                                                     dtype="float32"))
+    check_model(torch, ops, dev, mamba2, gated=False)
 
     print("== phase 5: end to end")
-    counts = end_to_end(torch, ops)
+    attn_counts = end_to_end(torch, ops, "pipeboost-opt-1.3b", 2,
+                             ("decode_attention", "flash_attention",
+                              "lora_merge"))
+    ssm_counts = end_to_end(torch, ops, "mamba2-780m", 0, ("ssd_scan",))
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     kernels = []
-    for mod in (dec, fa, lm):
+    for mod, counts in ((dec, attn_counts), (fa, attn_counts),
+                        (lm, attn_counts), (ssd, ssm_counts)):
         name = mod.__name__.rsplit(".", 1)[1]
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": mod.SOURCE,

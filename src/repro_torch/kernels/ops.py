@@ -3,9 +3,10 @@
 
 The model keeps attention tensors as (B, S, H, d); the kernels take
 (B, H, S, d).  The adapters here pass transposed *views* (the kernels read
-any strides with d innermost), so no layout copy is made.  Each call goes
-to the kernel module's wrapper, which runs the CUDA kernel for CUDA
-tensors and the plain version for CPU tensors.
+any strides with d innermost), so no layout copy is made.  The SSD scan
+takes the model's layout as it is.  Each call goes to the kernel module's
+wrapper, which runs the CUDA kernel for CUDA tensors and the plain version
+for CPU tensors.
 
 ``plain_versions()`` routes every call to the plain versions instead, on
 any device — the way ``chip_smoke.py`` runs the same model on the card once
@@ -20,6 +21,7 @@ from typing import Iterator, Optional
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lora_merge as _lm
+from repro_torch.kernels import ssd_scan as _ssd
 
 _PLAIN = [False]
 
@@ -65,13 +67,22 @@ def lora_merge(W, A, B, scale: float):
     return fn(W, A, B, scale)
 
 
+def ssd_scan(x, dt, A, Bm, Cm):
+    """Mamba-2 SSD: x (B,S,H,P), dt (B,S,H) f32, A (H,) f32, Bm/Cm
+    (B,S,N) -> (y (B,S,H,P), final state (B,H,P,N) f32)."""
+    fn = _ssd.ssd_scan_plain if _PLAIN[0] else _ssd.ssd_scan
+    return fn(x, dt, A, Bm, Cm)
+
+
 def reset_launch_counts() -> None:
     _dec.launches = 0
     _fa.launches = 0
     _lm.launches = 0
+    _ssd.launches = 0
 
 
 def launch_counts():
     return {"decode_attention": _dec.launches,
             "flash_attention": _fa.launches,
-            "lora_merge": _lm.launches}
+            "lora_merge": _lm.launches,
+            "ssd_scan": _ssd.launches}

@@ -1,7 +1,8 @@
 """Naive oracles for the ported kernels (the port of
 ``repro/kernels/ref.py``): the whole score matrix in memory, no tiling and
-no online softmax, so a blocking bug in a kernel or its plain version
-cannot hide behind shared structure.  Tests only; nothing on the serving
+no online softmax, and the SSD scan as its token-by-token recurrence, so a
+blocking bug in a kernel or its plain version cannot hide behind shared
+structure.  Tests only; nothing on the serving
 path calls these.
 """
 from __future__ import annotations
@@ -56,3 +57,25 @@ def decode_attention_ref(q, k, v, lens, *, slot_mask=None, scale=None):
 def lora_merge_ref(W, A, B, scale):
     delta = torch.einsum("ldr,lro->ldo", A.float(), B.float())
     return (W.float() + scale * delta).to(W.dtype)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm):
+    """Sequential recurrent oracle.  x: (B,S,H,P); dt: (B,S,H); A: (H,);
+    Bm/Cm: (B,S,N) -> (y (B,S,H,P), state (B,H,P,N) float32)."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    f32 = torch.float32
+    a = A.float()
+    state = torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+    ys = []
+    for t in range(S):
+        xt = x[:, t].float()                       # (B,H,P)
+        dtt = dt[:, t].float()                     # (B,H)
+        bt = Bm[:, t].float()                      # (B,N)
+        ct = Cm[:, t].float()
+        dA = torch.exp(dtt * a)
+        dBx = torch.einsum("bh,bn,bhp->bhpn", dtt, bt, xt)
+        state = state * dA[..., None, None] + dBx
+        ys.append(torch.einsum("bn,bhpn->bhp", ct, state))
+    y = torch.stack(ys, dim=1) if ys else x.float()[:, :0]
+    return y.to(x.dtype), state

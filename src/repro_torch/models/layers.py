@@ -1,5 +1,5 @@
-"""Core layers: norms, rotary embeddings, MLPs (the port of
-``repro/models/layers.py``).
+"""Core layers: norms, rotary embeddings, MLPs, the causal depthwise conv
+(the port of ``repro/models/layers.py``).
 
 Parameters are plain dicts of tensors; every layer is a function
 ``f(params, x, ...)``.  Initializers take an explicit ``torch.Generator``.
@@ -101,3 +101,33 @@ def mlp(params: Dict, x, act: str = "silu"):
     a = _ACTS[act]
     h = a(x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv1d (mamba2 front conv)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(w, x, state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv along time.
+
+    w: (K, C); x: (B, S, C); state: (B, K-1, C) carry of previous inputs.
+    Returns (y, new_state) with y: (B, S, C), new_state: (B, K-1, C).
+    """
+    K = w.shape[0]
+    S = x.shape[1]
+    if state is None:
+        state = torch.zeros((x.shape[0], K - 1, x.shape[-1]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state, x], dim=1)               # (B, S+K-1, C)
+    y = xp[:, 0:S] * w[0]
+    for i in range(1, K):
+        y = y + xp[:, i:i + S] * w[i]
+    new_state = xp[:, S:] if K > 1 else state
+    return y, new_state
+
+
+def causal_conv1d_step(w, x_t, state):
+    """Single decode step. x_t: (B, C); state: (B, K-1, C)."""
+    window = torch.cat([state, x_t[:, None, :]], dim=1)   # (B, K, C)
+    y = torch.einsum("bkc,kc->bc", window, w)
+    return y, window[:, 1:]

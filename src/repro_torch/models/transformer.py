@@ -1,34 +1,38 @@
-"""Model assembly for the dense/GQA decoder (the port of
-``repro/models/transformer.py``, attention layers only).
+"""Model assembly for the dense/GQA decoder and the Mamba-2 SSM stack (the
+port of ``repro/models/transformer.py``, attention and SSM layers).
 
 Parameters keep the reference's layout: per-layer weights stacked on a
-leading layer axis, ``params["blocks"]["attn"][name]`` of shape
-``(L, ...)``; caches are ``(L, B, C, Hkv, hd)`` with per-slot positions in
-``cache["pos"]``.  The layer stack runs as a Python loop (eager PyTorch has
-no ``scan`` to compile).
+leading layer axis per layer kind, ``params["blocks"][kind][name]`` of
+shape ``(L_kind, ...)``.  Caches keep the reference's leaves: attention
+``(L, B, C, Hkv, hd)`` with per-slot positions in ``cache["pos"]``; SSM
+``conv`` ``(L, B, K-1, d_inner+2N)`` in the model dtype and ``state``
+``(L, B, H, P, N)`` in float32.  The layer stack runs as a Python loop
+over the runs of equal kinds (eager PyTorch has no ``scan`` to compile).
 
 Entry points:
   * ``forward(..., mode="train")``   -> (logits (B,S,V) f32, aux)
   * ``forward(..., mode="prefill")`` -> (last-token logits (B,V) f32, cache)
   * ``decode_step(...)``             -> (logits (B,V) f32, cache)
 
-``decode_step`` is zero-copy: each layer only reads its cache slice and the
-current token's K/V row joins the softmax in the decode kernel; after the
-layer loop one in-place write puts every layer's row at ``pos % C``.  The
-cache passed in is updated in place — the analogue of the reference's
-donated cache — and returned.
+``decode_step`` is zero-copy: each attention layer only reads its cache
+slice and the current token's K/V row joins the softmax in the decode
+kernel; after the layer loop one in-place write puts every layer's row at
+``pos % C``.  SSM layers write their new conv window and state into their
+cache slices in place.  The cache passed in is updated in place — the
+analogue of the reference's donated cache — and returned.
 
-The MoE, SSM and recurrent layer kinds, M-RoPE and the audio family are
-not ported yet and raise ``NotImplementedError``.
+The MoE and recurrent layer kinds, hybrid patterns, M-RoPE and the audio
+family are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba2
 from repro_torch.models.layers import (_ACTS, apply_rope, dense_init,
                                        embed_init, rms_norm)
 
@@ -44,25 +48,32 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """The port runs dense/GQA attention decoders only (so far)."""
+    """The port runs dense/GQA attention decoders and all-SSM models (so
+    far)."""
     kinds = set(cfg.layer_kinds())
-    if kinds != {"attn"} or cfg.mrope or cfg.family == "audio":
+    if kinds not in ({"attn"}, {"ssm"}) or cfg.mrope \
+            or cfg.family == "audio":
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(kinds)}, mrope={cfg.mrope}, "
-            f"family={cfg.family} — only dense/GQA attention is ported")
+            f"family={cfg.family} — only dense/GQA attention and all-SSM "
+            f"models are ported")
+
+
+def kind_counts(cfg: ArchConfig) -> Dict[str, int]:
+    counts: Dict[str, int] = {}
+    for k in cfg.layer_kinds():
+        counts[k] = counts.get(k, 0) + 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=None,
-                device="cuda") -> Params:
-    """Random weights from ``gen`` (a generator on ``device``)."""
-    check_supported(cfg)
-    dtype = dtype or torch_dtype(cfg)
-    L, D, hd = cfg.n_layers, cfg.d_model, cfg.resolved_head_dim
-    Hq, Hkv, V = cfg.n_heads, cfg.n_kv_heads, cfg.padded_vocab
+def _init_attn_layers(gen: torch.Generator, cfg: ArchConfig, L: int,
+                      dtype, device) -> Params:
+    D, hd = cfg.d_model, cfg.resolved_head_dim
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
 
     def dense(*shape):
         return dense_init(gen, shape, dtype, device)
@@ -73,7 +84,6 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=None,
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    params: Params = {"embed": embed_init(gen, (V, D), dtype, device)}
     if cfg.gated_mlp:
         mlp = {"w_gate": dense(L, D, cfg.d_ff), "w_up": dense(L, D, cfg.d_ff),
                "w_down": dense(L, cfg.d_ff, D)}
@@ -89,10 +99,24 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=None,
                    bv=zeros(L, Hkv * hd))
     if cfg.qk_norm:
         blk.update(q_norm=ones(L, hd), k_norm=ones(L, hd))
-    params["blocks"] = {"attn": blk}
-    params["final_norm"] = ones(D)
+    return blk
+
+
+_LAYER_INIT = {"attn": _init_attn_layers, "ssm": mamba2.init_ssm_block}
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=None,
+                device="cuda") -> Params:
+    """Random weights from ``gen`` (a generator on ``device``)."""
+    check_supported(cfg)
+    dtype = dtype or torch_dtype(cfg)
+    D, V = cfg.d_model, cfg.padded_vocab
+    params: Params = {"embed": embed_init(gen, (V, D), dtype, device)}
+    params["blocks"] = {kind: _LAYER_INIT[kind](gen, cfg, n, dtype, device)
+                        for kind, n in kind_counts(cfg).items()}
+    params["final_norm"] = torch.ones((D,), dtype=dtype, device=device)
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense(D, V)
+        params["lm_head"] = dense_init(gen, (D, V), dtype, device)
     return params
 
 
@@ -117,11 +141,24 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> Cache:
     check_supported(cfg)
     dtype = dtype or torch_dtype(cfg)
-    C = attn_cache_capacity(cfg, max_len)
-    shape = (cfg.n_layers, batch, C, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
-            "attn": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                     "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    counts = kind_counts(cfg)
+    cache: Cache = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if "attn" in counts:
+        C = attn_cache_capacity(cfg, max_len)
+        shape = (counts["attn"], batch, C, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        cache["attn"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                         "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if "ssm" in counts:
+        L = counts["ssm"]
+        ch = cfg.d_inner + 2 * cfg.ssm_state
+        cache["ssm"] = {
+            "conv": torch.zeros((L, batch, cfg.ssm_conv - 1, ch), dtype=dtype,
+                                device=device),
+            "state": torch.zeros((L, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                  cfg.ssm_state), dtype=torch.float32,
+                                 device=device)}
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +264,29 @@ def unembed(cfg, params, x) -> torch.Tensor:
     return x.float() @ head.float()
 
 
+def _kind_runs(kinds: List[str]) -> List[Tuple[str, int]]:
+    """Maximal runs of equal consecutive layer kinds, in order (a hybrid
+    pattern becomes several short runs)."""
+    runs: List[List] = []
+    for k in kinds:
+        if runs and runs[-1][0] == k:
+            runs[-1][1] += 1
+        else:
+            runs.append([k, 1])
+    return [(k, n) for k, n in runs]
+
+
+def _layers(cfg: ArchConfig) -> Iterator[Tuple[str, int]]:
+    """(kind, index in that kind's stack) of every layer, in model order,
+    walking the runs of ``_kind_runs``."""
+    cursor: Dict[str, int] = {}
+    for kind, count in _kind_runs(cfg.layer_kinds()):
+        start = cursor.get(kind, 0)
+        cursor[kind] = start + count
+        for i in range(start, start + count):
+            yield kind, i
+
+
 def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
             mode: str = "train", max_len: Optional[int] = None,
             last_index=None) -> Tuple[torch.Tensor, Any]:
@@ -238,7 +298,8 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
     ``last_index`` (B,) int, prefill only: per-row index of the true last
     prompt token of right-padded (bucketed) prompts.  Logits are gathered
     there and ``cache["pos"]`` is ``last_index + 1``, so decode masks the
-    pad K/V.
+    pad K/V.  Only valid for pure attention with a full-length cache: an
+    SSM state would take in the pad tokens (callers gate on that).
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode {mode!r}")
@@ -247,18 +308,34 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
     B, S = x.shape[:2]
     want_cache = mode == "prefill"
     cap = attn_cache_capacity(cfg, max_len or S)
-    L, Hkv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    cache: Cache = {}
     if want_cache:
-        kc = torch.zeros((L, B, cap, Hkv, hd), dtype=x.dtype,
-                         device=x.device)
-        vc = torch.zeros_like(kc)
-    blocks = params["blocks"]["attn"]
-    for i in range(L):
-        x, (k, v) = attn_layer_fwd(cfg, layer_params(blocks, i), x,
-                                   positions)
-        if want_cache:
-            _place_kv(kc[i], k, cap)
-            _place_kv(vc[i], v, cap)
+        counts = kind_counts(cfg)
+        if "attn" in counts:
+            kc = torch.zeros((counts["attn"], B, cap, cfg.n_kv_heads,
+                              cfg.resolved_head_dim), dtype=x.dtype,
+                             device=x.device)
+            cache["attn"] = {"k": kc, "v": torch.zeros_like(kc)}
+        if "ssm" in counts:
+            n, ch = counts["ssm"], cfg.d_inner + 2 * cfg.ssm_state
+            cache["ssm"] = {
+                "conv": torch.empty((n, B, cfg.ssm_conv - 1, ch),
+                                    dtype=x.dtype, device=x.device),
+                "state": torch.empty((n, B, cfg.ssm_heads, cfg.ssm_head_dim,
+                                      cfg.ssm_state), dtype=torch.float32,
+                                     device=x.device)}
+    for kind, i in _layers(cfg):
+        p = layer_params(params["blocks"][kind], i)
+        if kind == "attn":
+            x, (k, v) = attn_layer_fwd(cfg, p, x, positions)
+            if want_cache:
+                _place_kv(cache["attn"]["k"][i], k, cap)
+                _place_kv(cache["attn"]["v"][i], v, cap)
+        else:
+            x, (conv_s, state) = mamba2.ssm_block_fwd(cfg, p, x)
+            if want_cache:
+                cache["ssm"]["conv"][i].copy_(conv_s)
+                cache["ssm"]["state"][i].copy_(state)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
 
     if mode == "train":
@@ -272,7 +349,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
     else:
         logits = unembed(cfg, params, x[:, -1:, :])[:, 0, :]
         pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    return logits, {"pos": pos, "attn": {"k": kc, "v": vc}}
+    return logits, {"pos": pos, **cache}
 
 
 def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
@@ -291,20 +368,29 @@ def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
         pos = pos.expand(B)
     pos = pos.to(torch.int32).contiguous()
     positions = pos[:, None]
-    kc, vc = cache["attn"]["k"], cache["attn"]["v"]
-    C = kc.shape[2]
-    blocks = params["blocks"]["attn"]
     k_rows, v_rows = [], []
-    for i in range(cfg.n_layers):
-        x, kn, vn = attn_layer_step(cfg, layer_params(blocks, i), x,
-                                    positions, kc[i], vc[i], pos)
-        k_rows.append(kn)
-        v_rows.append(vn)
-    # the one post-loop row write of every layer, in place at pos % C
-    slot = (pos % C).long()
-    bidx = torch.arange(B, device=x.device)
-    kc[:, bidx, slot] = torch.stack(k_rows)
-    vc[:, bidx, slot] = torch.stack(v_rows)
+    for kind, i in _layers(cfg):
+        p = layer_params(params["blocks"][kind], i)
+        if kind == "attn":
+            x, kn, vn = attn_layer_step(cfg, p, x, positions,
+                                        cache["attn"]["k"][i],
+                                        cache["attn"]["v"][i], pos)
+            k_rows.append(kn)
+            v_rows.append(vn)
+        else:
+            conv, state = cache["ssm"]["conv"][i], cache["ssm"]["state"][i]
+            y, (conv_new, state_new) = mamba2.ssm_block_step(
+                cfg, p, x[:, 0], conv, state)
+            conv.copy_(conv_new)
+            state.copy_(state_new)
+            x = y[:, None]
+    if k_rows:
+        # the one post-loop row write of every layer, in place at pos % C
+        kc, vc = cache["attn"]["k"], cache["attn"]["v"]
+        slot = (pos % kc.shape[2]).long()
+        bidx = torch.arange(B, device=x.device)
+        kc[:, bidx, slot] = torch.stack(k_rows)
+        vc[:, bidx, slot] = torch.stack(v_rows)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(cfg, params, x)[:, 0, :]
-    return logits, {"pos": pos + 1, "attn": {"k": kc, "v": vc}}
+    return logits, {**cache, "pos": pos + 1}

@@ -2,10 +2,11 @@
 slot-indexed KV cache, with epoch-based LoRA adapter scheduling (the port
 of ``repro/serving/engine.py``).
 
-Slots: the batcher owns one cache of ``n_slots`` rows; a new request's
-prefill is written into a free slot while the other slots keep decoding,
-so requests join and leave the batch at token granularity.  Per-slot
-positions ride in ``cache["pos"]`` (n_slots,).
+Slots: the batcher owns one cache of ``n_slots`` rows (attention K/V, or
+each SSM layer's conv window and state); a new request's prefill is
+written into a free slot while the other slots keep decoding, so requests
+join and leave the batch at token granularity.  Per-slot positions ride in
+``cache["pos"]`` (n_slots,).
 
 Hot path:
 * **Zero-copy decode + sample**: one step runs ``decode_step`` (which
@@ -18,7 +19,8 @@ Hot path:
   at the true prompt end (``forward(..., last_index=...)``) and
   ``cache["pos"]`` records the true length so decode masks the pad K/V.
   Bucketing needs a pure-attention model with a full-length cache
-  (``_can_bucket``).
+  (``_can_bucket``); an SSM model prefills each prompt alone at its exact
+  length, since pad tokens would enter its running state.
 * **Free slots are frozen**: their ``pos`` does not advance and their
   token passes through, so inactive lanes never reach the bookkeeping.
 
@@ -139,9 +141,9 @@ class ContinuousBatcher:
             max_len=self.max_len, last_index=last_idx)
         n = slots.shape[0]
         dst = slots.long()
-        for leaf in ("k", "v"):
-            self.cache["attn"][leaf].index_copy_(1, dst,
-                                                 c1["attn"][leaf][:, :n])
+        for kind in ("attn", "ssm"):
+            for leaf, rows in c1.get(kind, {}).items():
+                self.cache[kind][leaf].index_copy_(1, dst, rows[:, :n])
         self.cache["pos"].index_copy_(0, dst, c1["pos"][:n])
         return self.sampler(logits).to(torch.int32)
 

@@ -9,16 +9,21 @@ inside the fixture, never at import time).  Run them on the card with
 Tolerances: float32 kernels within 2e-5 of the plain version (sum order
 only); bfloat16 attention within 2e-2 of the plain version computed in
 float32 from the same bf16 inputs (sum order plus one bf16 rounding of the
-output); a bf16 LoRA merge within one bf16 ulp of |W'|.
+output); a bf16 LoRA merge within one bf16 ulp of |W'|.  The SSD scan's
+sums run over up to 128 terms of magnitude up to max|y|, so its y is held
+within 2e-5 (float32) or 2e-2 (bf16: one rounding plus sum order) of
+max|plain y|, and its float32 state within 1e-4 of max|plain state|.
 """
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import get_arch
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lora_merge as lm
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.cuda
@@ -123,6 +128,37 @@ def test_lora_kernel_matches_plain(card, dtype, L, Din, Dout, r):
         assert bool((diff <= torch.ldexp(torch.ones_like(diff), e - 8)).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,H,P,N", [
+    (1, 512, 48, 64, 128),       # mamba2-780m prefill
+    (4, 300, 48, 64, 128),       # ragged S, B > 1
+    (2, 64, 8, 32, 16),          # one whole chunk, small N
+    (3, 1, 4, 64, 100),          # one row, N not a power of two
+])
+def test_ssd_kernel_matches_plain(card, dtype, B, S, H, P, N):
+    """x, Bm and Cm are strided slices of one conv_out-like tensor, as in
+    the model."""
+    g = _gen(card, 6)
+    di = H * P
+    conv_out = _rand((B, S, di + 2 * N), dtype, card, g)
+    x = conv_out[..., :di].reshape(B, S, H, P)
+    Bm, Cm = conv_out[..., di:di + N], conv_out[..., di + N:]
+    dt = F.softplus(torch.randn((B, S, H), generator=g, device=card))
+    A = -torch.linspace(1.0, 16.0, H, device=card)
+    n0 = ssd.launches
+    y, st = ops.ssd_scan(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ssd.launches == n0 + 1
+    with ops.plain_versions():
+        yr, sr = ops.ssd_scan(x.float(), dt, A, Bm.float(), Cm.float())
+    assert y.dtype == dtype and y.shape == yr.shape
+    assert st.dtype == torch.float32 and st.shape == sr.shape == (B, H, P, N)
+    assert bool(torch.isfinite(y.float()).all())
+    y_tol = (2e-5 if dtype == torch.float32 else 2e-2) * yr.abs().max()
+    assert (y.float() - yr).abs().max().item() <= y_tol
+    assert (st - sr).abs().max().item() <= 1e-4 * sr.abs().max().item()
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
     q = torch.zeros((2, 4, 80), device=card, dtype=torch.bfloat16)
     k = torch.zeros((2, 4, 16, 80), device=card, dtype=torch.bfloat16)
@@ -138,12 +174,46 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
                       torch.zeros((1, 2, 12), device=card), 1.0)  # Dout % 8
 
 
-def test_model_kernels_match_plain(card):
+@pytest.mark.parametrize("what", ["P=48", "N=256", "mixed dtypes",
+                                  "bf16 dt", "strided last dim"])
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(card, what):
+    B, S, H, P, N = 2, 16, 4, 64, 32
+    bf = torch.bfloat16
+    x = torch.zeros((B, S, H, P), device=card, dtype=bf)
+    dt = torch.zeros((B, S, H), device=card)
+    A = -torch.ones((H,), device=card)
+    Bm = torch.zeros((B, S, N), device=card, dtype=bf)
+    Cm = torch.zeros((B, S, N), device=card, dtype=bf)
+    if what == "P=48":
+        x = x[..., :48]
+    elif what == "N=256":
+        Bm = Cm = torch.zeros((B, S, 256), device=card, dtype=bf)
+    elif what == "mixed dtypes":
+        Bm = Bm.float()
+    elif what == "bf16 dt":
+        dt = dt.to(bf)
+    else:
+        Cm = torch.zeros((B, S, 2 * N), device=card, dtype=bf)[..., ::2]
+    n0 = ssd.launches
+    with pytest.raises(ValueError):
+        ssd.ssd_scan(x, dt, A, Bm, Cm)
+    assert ssd.launches == n0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-780m"])
+def test_model_kernels_match_plain(card, arch):
     """A small bf16 model with kernel-sized heads: prefill + 4 zero-copy
     decode steps through the kernels against the plain versions."""
-    cfg = get_arch("qwen3-1.7b").reduced(n_layers=2, d_model=256, n_heads=4,
-                                         n_kv_heads=2, head_dim=64,
-                                         dtype="bfloat16")
+    if arch == "qwen3-1.7b":
+        cfg = get_arch(arch).reduced(n_layers=2, d_model=256, n_heads=4,
+                                     n_kv_heads=2, head_dim=64,
+                                     dtype="bfloat16")
+        want = {"flash_attention": 2, "decode_attention": 8, "ssd_scan": 0}
+    else:
+        cfg = get_arch(arch).reduced(n_layers=2, d_model=256,
+                                     ssm_head_dim=64, ssm_state=128,
+                                     dtype="bfloat16")
+        want = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 2}
     params = T.init_params(cfg, _gen(card, 3), device=card)
     toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=_gen(card, 4),
                          device=card)
@@ -162,7 +232,7 @@ def test_model_kernels_match_plain(card):
     ops.reset_launch_counts()
     with_kernels = run()
     counts = ops.launch_counts()
-    assert counts["flash_attention"] == 2 and counts["decode_attention"] == 8
+    assert counts == dict(want, lora_merge=0)
     with ops.plain_versions():
         plain = run()
     assert ops.launch_counts() == counts
