@@ -6,8 +6,9 @@
 //   G     = (C B^T) o exp(cum_q - cum_k) o dt_k,  q >= k, else 0
 //   y     = G x + exp(cum_q) * C state^T
 //   state = exp(cum_last) * state + sum_k exp(cum_last - cum_k) dt_k x_k B_k^T
-// with the (P, N) float32 state carried from chunk to chunk; returns y and
-// the final state.  All sums are float32.
+// with the (P, N) float32 state carried from chunk to chunk, starting from
+// an initial state (or zeros); returns y and the final state.  All sums are
+// float32.
 //
 // Bound on the H100: at a serving prefill (B = 1, S = 512, H = 48, P = 64,
 // N = 128, bf16) the bytes (x, y, B, C, dt, the final state: about 8 MB)
@@ -41,7 +42,8 @@
 // Layouts (element strides, innermost dimension contiguous):
 //   x (B, S, H, P) and y (B, S, H, P) in T; dt (B, S, H) float32;
 //   A (H,) float32 (negative); Bm, Cm (B, S, N) in T;
-//   state (B, H, P, N) float32, contiguous.
+//   state and the optional initial state h0 (B, H, P, N) float32,
+//   contiguous.
 #include "common.cuh"
 
 namespace {
@@ -71,7 +73,7 @@ constexpr size_t kSmemBytes = kSmemFloats * sizeof(float);
 
 struct SsdArgs {
   const void* x; const float* dt; const float* A; const void* Bm;
-  const void* Cm; void* y; float* state;
+  const void* Cm; void* y; float* state; const float* h0;
   long long x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh;
   long long b_sb, b_ss, c_sb, c_ss, y_sb, y_ss, y_sh;
   int S, H, P, N;
@@ -104,6 +106,14 @@ ssd_scan_kernel(const SsdArgs a) {
   T* yb = static_cast<T*>(a.y) + b * a.y_sb + h * a.y_sh + p0;
 
   for (int i = tid; i < kNMax * kPSP; i += kThreads) St[i] = 0.f;
+  if (a.h0 != nullptr) {           // uniform across the CTA
+    __syncthreads();
+    const float* hb = a.h0 + ((long long)(b * a.H + h) * a.P + p0) * N;
+    for (int i = tid; i < kPS * N; i += kThreads) {
+      const int p = i / N, n = i - p * N;
+      St[n * kPSP + p] = hb[(long long)p * N + n];
+    }
+  }
 
   for (int t0 = 0; t0 < S; t0 += kQ) {
     const int rows = min(kQ, S - t0);
@@ -284,7 +294,7 @@ cudaError_t launch_t(const SsdArgs& a, int B, cudaStream_t stream) {
 
 extern "C" int pb_ssd_scan(
     int dtype, int device, const void* x, const void* dt, const void* A,
-    const void* Bm, const void* Cm, void* y, void* state,
+    const void* Bm, const void* Cm, void* y, void* state, const void* h0,
     const long long* st, int B, int S, int H, int P, int N, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -294,6 +304,7 @@ extern "C" int pb_ssd_scan(
   a.x = x; a.dt = static_cast<const float*>(dt);
   a.A = static_cast<const float*>(A); a.Bm = Bm; a.Cm = Cm; a.y = y;
   a.state = static_cast<float*>(state);
+  a.h0 = static_cast<const float*>(h0);
   a.x_sb = st[0]; a.x_ss = st[1]; a.x_sh = st[2];
   a.dt_sb = st[3]; a.dt_ss = st[4]; a.dt_sh = st[5];
   a.b_sb = st[6]; a.b_ss = st[7];

@@ -67,11 +67,12 @@ def lora_merge(W, A, B, scale: float):
     return fn(W, A, B, scale)
 
 
-def ssd_scan(x, dt, A, Bm, Cm):
+def ssd_scan(x, dt, A, Bm, Cm, initial_state=None):
     """Mamba-2 SSD: x (B,S,H,P), dt (B,S,H) f32, A (H,) f32, Bm/Cm
-    (B,S,N) -> (y (B,S,H,P), final state (B,H,P,N) f32)."""
+    (B,S,N), initial_state (B,H,P,N) f32 or None (zeros) -> (y (B,S,H,P),
+    final state (B,H,P,N) f32)."""
     fn = _ssd.ssd_scan_plain if _PLAIN[0] else _ssd.ssd_scan
-    return fn(x, dt, A, Bm, Cm)
+    return fn(x, dt, A, Bm, Cm, initial_state)
 
 
 def reset_launch_counts() -> None:

@@ -16,12 +16,13 @@ P) inside one CTA with the state in shared memory, and does the products
 on the CUDA cores in float32: right first, far above that bound.
 
 Layouts: x (B, S, H, P) in the model dtype; dt (B, S, H) float32 (after
-softplus); A (H,) float32, negative; Bm/Cm (B, S, N) in x's dtype ->
-y (B, S, H, P) in x's dtype, final state (B, H, P, N) float32.  x, Bm and
-Cm may be strided views (slices of one ``conv_out`` tensor): the kernel
-reads any strides with the last dimension contiguous, so nothing is
-copied.  The wrapper runs the kernel for CUDA tensors (or raises) and the
-plain version for CPU tensors.
+softplus); A (H,) float32, negative; Bm/Cm (B, S, N) in x's dtype; an
+optional initial state (B, H, P, N) float32 -> y (B, S, H, P) in x's
+dtype, final state (B, H, P, N) float32.  x, Bm and Cm may be strided
+views (slices of one ``conv_out`` tensor): the kernel reads any strides
+with the last dimension contiguous, so nothing is copied.  The wrapper
+runs the kernel for CUDA tensors (or raises) and the plain version for
+CPU tensors.
 """
 from __future__ import annotations
 
@@ -38,16 +39,19 @@ MAX_STATE = 128       # largest N the kernel's shared memory holds
 launches = 0          # kernel launches since the last reset
 
 
-def ssd_scan_plain(x, dt, A, Bm, Cm, *, chunk: int = CHUNK):
+def ssd_scan_plain(x, dt, A, Bm, Cm, initial_state=None, *,
+                   chunk: int = CHUNK):
     """The plain version: ``_ssd_kernel``'s chunk loop in float32, over
-    all rows and heads at once.  A short last chunk is computed at its
-    true length, which equals the reference's dt = 0 padding exactly."""
+    all rows and heads at once, from ``initial_state`` (B, H, P, N) or
+    zeros.  A short last chunk is computed at its true length, which
+    equals the reference's dt = 0 padding exactly."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     f32 = torch.float32
     a = A.float()
     y = torch.empty((Bsz, S, H, P), dtype=f32, device=x.device)
-    state = torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+    state = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device)
+             if initial_state is None else initial_state.to(f32).clone())
     for t0 in range(0, S, chunk):
         xc = x[:, t0:t0 + chunk].float()                # (B, Q, H, P)
         dtc = dt[:, t0:t0 + chunk].float()              # (B, Q, H)
@@ -78,14 +82,15 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"ssd_scan kernel: {msg}")
 
 
-def ssd_scan(x, dt, A, Bm, Cm):
-    """x: (B, S, H, P); dt: (B, S, H); A: (H,); Bm/Cm: (B, S, N) ->
-    (y (B, S, H, P), final state (B, H, P, N) float32).
+def ssd_scan(x, dt, A, Bm, Cm, initial_state=None):
+    """x: (B, S, H, P); dt: (B, S, H); A: (H,); Bm/Cm: (B, S, N);
+    initial_state: (B, H, P, N) or None (zeros) -> (y (B, S, H, P), final
+    state (B, H, P, N) float32).
 
     CPU tensors run ``ssd_scan_plain``; CUDA tensors launch the kernel or
     raise."""
     if not x.is_cuda:
-        return ssd_scan_plain(x, dt, A, Bm, Cm)
+        return ssd_scan_plain(x, dt, A, Bm, Cm, initial_state)
     global launches
     _require(x.dim() == 4, f"x must be (B, S, H, P), got {tuple(x.shape)}")
     Bsz, S, H, P = x.shape
@@ -111,14 +116,23 @@ def ssd_scan(x, dt, A, Bm, Cm):
         _require(t.dtype == torch.float32,
                  f"{name} must be float32, got {t.dtype}")
     _require(A.is_contiguous(), "A must be contiguous")
+    h0 = None
+    if initial_state is not None:
+        _require(initial_state.is_cuda and initial_state.device == dev,
+                 f"initial_state must be on {dev}")
+        _require(initial_state.dtype == torch.float32
+                 and initial_state.shape == (Bsz, H, P, N),
+                 f"initial_state must be float32 {(Bsz, H, P, N)}, got "
+                 f"{initial_state.dtype} {tuple(initial_state.shape)}")
+        h0 = initial_state.contiguous()
     y = torch.empty((Bsz, S, H, P), dtype=dtype, device=dev)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
     st = build.strides((x, (0, 1, 2)), (dt, (0, 1, 2)), (Bm, (0, 1)),
                        (Cm, (0, 1)), (y, (0, 1, 2)))
     err = build.load().pb_ssd_scan(
         code, dev.index, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-        Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), state.data_ptr(), st,
-        Bsz, S, H, P, N, build.stream_of(x))
+        Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
+        build.ptr(h0), st, Bsz, S, H, P, N, build.stream_of(x))
     build.check(err, "ssd_scan")
     launches += 1
     return y, state

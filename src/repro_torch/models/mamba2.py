@@ -2,11 +2,10 @@
 ``repro/models/mamba2.py``).
 
 Prefill runs the chunked dual form.  Unlike the reference, which leaves
-its Pallas kernel out of the model, ``ssm_block_fwd`` runs the scan of
-every prefill from an empty state through ``ops.ssd_scan`` (the SSD scan
-kernel on the card, its plain version on the CPU).  ``ssd_chunked`` is the
-reference's XLA-path form, kept for calls that continue from an initial
-state and as an independent check in the tests.
+its Pallas kernel out of the model (its ``ssd_chunked`` is an XLA-path
+form), ``ssm_block_fwd`` runs every scan, from an empty or a given state,
+through ``ops.ssd_scan``: the SSD scan kernel on the card, its plain
+version on the CPU.
 
 Decode is the O(1)-per-token recurrent form (``ssm_block_step``).
 Parameters keep the reference's layout and names; the port stacks them on
@@ -14,7 +13,7 @@ a leading layer axis.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -61,77 +60,9 @@ def _conv_in(cfg, zxbcdt):
     return zxbcdt[..., cfg.d_inner:2 * cfg.d_inner + 2 * cfg.ssm_state]
 
 
-def ssd_chunked(x, dt, A, B, C, chunk: int,
-                initial_state: Optional[torch.Tensor] = None):
-    """Chunked SSD, the reference's XLA-path form.
-
-    x: (Bt, S, H, P); dt: (Bt, S, H) (already softplus'ed, >0);
-    A: (H,) negative; B, C: (Bt, S, N) [single group broadcast to heads].
-    Returns (y: (Bt, S, H, P), final_state: (Bt, H, P, N) float32).
-    The inter-chunk recurrence s_c = d_c * s_{c-1} + S_c runs as a loop
-    over chunks where the reference uses an associative scan.
-    """
-    Bt, S0, H, P = x.shape
-    N = B.shape[-1]
-    # pad to a chunk multiple: padded steps get dt=0 => decay exp(0)=1 and
-    # zero state contribution, so they are exact no-ops on the recurrence.
-    pad = (-S0) % chunk
-    if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        B = F.pad(B, (0, 0, 0, pad))
-        C = F.pad(C, (0, 0, 0, pad))
-    S = S0 + pad
-    nc = S // chunk
-
-    f32 = torch.float32
-    xc = x.reshape(Bt, nc, chunk, H, P).to(f32)
-    dtc = dt.reshape(Bt, nc, chunk, H).to(f32)
-    Bc = B.reshape(Bt, nc, chunk, N).to(f32)
-    Cc = C.reshape(Bt, nc, chunk, N).to(f32)
-
-    dA = dtc * A.to(f32)                           # (Bt,nc,Q,H) negative
-    cum = torch.cumsum(dA, dim=2)                  # within-chunk cumulative
-    # --- intra-chunk: L[q, k] = exp(cum_q - cum_k) for q >= k ---
-    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (Bt,nc,Q,Q,H)
-    causal = torch.ones((chunk, chunk), dtype=torch.bool,
-                        device=x.device).tril()[None, None, :, :, None]
-    L = torch.exp(seg.masked_fill(~causal, float("-inf")))
-    scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)       # (Bt,nc,Q,Q)
-    G = scores[..., None] * L * dtc[:, :, None, :, :]      # (Bt,nc,Q,K,H)
-    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", G, xc)
-
-    # --- chunk states ---
-    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)      # (Bt,nc,Q,H)
-    S_chunk = torch.einsum("bckhp,bckn->bchnp",
-                           xc * (decay_to_end * dtc)[..., None],
-                           Bc)                             # (Bt,nc,H,N,P)
-    chunk_decay = torch.exp(cum[:, :, -1, :])              # (Bt,nc,H)
-
-    # --- inter-chunk recurrence; state entering chunk c ---
-    if initial_state is None:
-        s = torch.zeros((Bt, H, N, P), dtype=f32, device=x.device)
-    else:
-        s = initial_state.to(f32).transpose(-1, -2)        # (Bt,H,N,P)
-    states_in = []
-    for c in range(nc):
-        states_in.append(s)
-        s = chunk_decay[:, c, :, None, None] * s + S_chunk[:, c]
-    if not states_in:
-        return x[:, :S0], s.transpose(-1, -2)
-
-    # --- inter-chunk output: y += (C_q . state_in) * exp(cum_q) ---
-    y_inter = torch.einsum("bcqn,bchnp->bcqhp", Cc,
-                           torch.stack(states_in, dim=1))
-    y_inter = y_inter * torch.exp(cum)[..., None]
-    y = (y_intra + y_inter).reshape(Bt, S, H, P)[:, :S0]
-    return y.to(x.dtype), s.transpose(-1, -2).contiguous()  # (Bt,H,P,N)
-
-
 def ssm_block_fwd(cfg, p, x, *, conv_state=None, ssm_state=None):
     """Full-sequence forward. x: (B, S, D). Returns (y, (conv_state,
-    ssm_state)).  From an empty state (every serving prefill) the scan runs
-    through ``ops.ssd_scan``; with ``ssm_state`` through ``ssd_chunked``."""
+    ssm_state)); the scan continues from ``ssm_state`` when given."""
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     Bsz, S = x.shape[:2]
     h = rms_norm(p["norm"], x, cfg.norm_eps)
@@ -147,11 +78,7 @@ def ssm_block_fwd(cfg, p, x, *, conv_state=None, ssm_state=None):
     C = conv_out[..., di + N:]
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    if ssm_state is None:
-        y, new_ssm_state = ops.ssd_scan(xs, dt, A, B, C)
-    else:
-        y, new_ssm_state = ssd_chunked(xs, dt, A, B, C, cfg.ssm_chunk,
-                                       initial_state=ssm_state)
+    y, new_ssm_state = ops.ssd_scan(xs, dt, A, B, C, ssm_state)
     y = y + p["D_skip"].to(y.dtype)[:, None] * xs
     y = y.reshape(Bsz, S, di)
     y = rms_norm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)

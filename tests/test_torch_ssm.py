@@ -10,7 +10,7 @@ magnitude between the plain SSD scan and the reference's Pallas kernel
 scales with the summed terms, up to |y| ~ 200 at N = 128, not with the
 result); 5e-4 against the sequential oracle (the reference's own
 allowance for chunked against sequential); 1e-4 on SSM block outputs,
-states and logits (the port's prefill scans in chunks of 64 where the
+states and logits (the port's scan runs in chunks of 64 where the
 reference's ``ssd_chunked`` uses the config's 16); token streams under
 ``quantized_greedy`` exactly equal.
 """
@@ -117,15 +117,19 @@ def test_ssd_plain_matches_sequential_oracle(B, S, H, P, N, chunk):
         _close(s, to_numpy(sr), ORACLE_TOL, ORACLE_TOL)
 
 
-def test_ssd_op_runs_plain_on_cpu_and_counts_no_launch():
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_op_runs_plain_on_cpu_and_counts_no_launch(with_state):
     """On CPU tensors the model-layout op is the plain version, with and
     without ``plain_versions()``, and launches nothing."""
     x, dt, A, Bm, Cm = _torch(*_ssd_inputs(22, 2, 70, 4, 16, 8))
+    h0 = torch.randn((2, 4, 16, 8),
+                     generator=torch.Generator().manual_seed(0)) \
+        if with_state else None
     tops.reset_launch_counts()
-    y0, s0 = tssd.ssd_scan_plain(x, dt, A, Bm, Cm)
-    y1, s1 = tops.ssd_scan(x, dt, A, Bm, Cm)
+    y0, s0 = tssd.ssd_scan_plain(x, dt, A, Bm, Cm, h0)
+    y1, s1 = tops.ssd_scan(x, dt, A, Bm, Cm, h0)
     with tops.plain_versions():
-        y2, s2 = tops.ssd_scan(x, dt, A, Bm, Cm)
+        y2, s2 = tops.ssd_scan(x, dt, A, Bm, Cm, h0)
     for y in (y1, y2):
         assert torch.equal(y, y0)
     for s in (s1, s2):
@@ -137,6 +141,9 @@ def test_ssd_op_runs_plain_on_cpu_and_counts_no_launch():
 
 @pytest.mark.parametrize("with_state", [False, True])
 def test_ssd_chunked_matches_reference(with_state):
+    """The plain scan from a given initial state (or zeros), at the
+    reference's chunk and at its own, against the reference's XLA-path
+    ``ssd_chunked``."""
     B, S, H, P, N = 2, 70, 4, 16, 8
     x, dt, A, Bm, Cm = _ssd_inputs(23, B, S, H, P, N)
     s0 = (np.random.default_rng(24).standard_normal((B, H, P, N))
@@ -144,11 +151,12 @@ def test_ssd_chunked_matches_reference(with_state):
     yj, sj = jm.ssd_chunked(*_jax(x, dt, A, Bm, Cm), 16,
                             initial_state=None if s0 is None
                             else jnp.asarray(s0))
-    yt, st = tm.ssd_chunked(*_torch(x, dt, A, Bm, Cm), 16,
-                            initial_state=None if s0 is None
-                            else torch.from_numpy(s0))
-    _close_scaled(yt, yj, KERNEL_TOL)
-    _close_scaled(st, sj, KERNEL_TOL)
+    for chunk in (16, tssd.CHUNK):
+        yt, st = tssd.ssd_scan_plain(
+            *_torch(x, dt, A, Bm, Cm),
+            None if s0 is None else torch.from_numpy(s0), chunk=chunk)
+        _close_scaled(yt, yj, KERNEL_TOL)
+        _close_scaled(st, sj, KERNEL_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -186,8 +194,8 @@ def ssm_setup():
 
 
 def test_ssm_block_matches_reference(ssm_setup):
-    """Prefill from an empty state (the port's scan op), a continued
-    prefill from that state (``ssd_chunked``), then one decode step."""
+    """Prefill from an empty state, a continued prefill from that state
+    (both through the port's scan op), then one decode step."""
     jcfg, jparams, tcfg, tparams = ssm_setup
     jp = jax.tree.map(lambda a: a[0], jparams["blocks"]["ssm"])
     tp = TT.layer_params(tparams["blocks"]["ssm"], 0)
