@@ -15,44 +15,56 @@ Phases (any failure exits non-zero and prints no result line):
 3. Kernels against their plain PyTorch versions at the serving path's
    shapes (bf16), each output held against the plain version computed in
    float32 from the same bf16 inputs: attention within 2e-2 absolute (sum
-   order plus one bf16 rounding of the output), the LoRA merge within one
-   bf16 ulp of |W'|.  The SSD scan runs from zeros and from a given state;
-   its bf16 y is held element by element within 2^-8 |plain y| (half a
-   bf16 ulp, the most one rounding moves it) plus 1e-2 mean |plain y|
-   (float32 sum order), the same inputs through its float32 build within 2e-5 of
-   max |plain y| (sum order only), and its float32 state within 1e-4 of
-   max |plain state|.  Each kernel is timed with CUDA events
-   over many launches on inputs rotated through more than the 50 MB L2
-   cache, beside its plain version, one PyTorch library call where one
-   computes the same function (``library_ms``, a yardstick the port never
-   calls; none does for the SSD scan) and its bound: the larger of the
-   bytes it must move over 3.35 TB/s and its operations over the peak
-   rate of their type (989 TFLOP/s bf16, 67 TFLOP/s float32).
+   order plus one bf16 rounding of the output; recurrentgemma's group of
+   10 query heads of 256 on one KV head among the cases, with its ring
+   slot mask and a window shorter than the keys), the LoRA merge within
+   one bf16 ulp of |W'|.  The SSD scan runs from zeros and from a given
+   state; its bf16 y is held element by element within 2^-8 |plain y|
+   (half a bf16 ulp, the most one rounding moves it) plus 1e-2 mean |plain
+   y| (float32 sum order), the same inputs through its float32 build
+   within 2e-5 of max |plain y| (sum order only), and its float32 state
+   within 1e-4 of max |plain state|.  The RG-LRU scan (float32, W 2560)
+   runs from zeros and from a given h0, y and h_T within 1e-5 of max
+   |plain y| and max |plain h_T| (expf rounding and the kernel's segment
+   carries).  Each kernel is timed with CUDA events over many launches on
+   inputs rotated through more than the 50 MB L2 cache, beside its plain
+   version, one PyTorch library call where one computes the same function
+   (``library_ms``, a yardstick the port never calls; none does for the
+   two scans) and its bound: the larger of the bytes it must move over
+   3.35 TB/s and its operations over the peak rate of their type (989
+   TFLOP/s bf16, 67 TFLOP/s float32).  Decode and flash attention are
+   timed at opt-1.3b's shapes and again at recurrentgemma-2b's.
 4. Model: the same weights and teacher-forced tokens through prefill and 4
    zero-copy decode steps, once through the kernels and once through the
    plain versions, for pipeboost-opt-1.3b at full width (24 layers),
-   qwen3-1.7b at full width with depth cut to 4 layers, and mamba2-780m
-   at full width (48 layers; its 4 rows prefill at one exact length, since
-   pad tokens would enter the SSM state) in float32 and in bf16.  Logits
-   are held within 2.5% of max |plain logit|; for mamba2 the limit is the
+   qwen3-1.7b at full width with depth cut to 4 layers, and, each in
+   float32 and in bf16 at full width and depth, mamba2-780m (48 layers)
+   and recurrentgemma-2b (26 layers: 18 RG-LRU, 8 local attention).  The
+   rows of a model with a recurrent state prefill at one exact length,
+   since pad tokens would enter the state.  Logits are held within 2.5% of
+   max |plain logit|; for a model with a recurrent state the limit is the
    larger of that and twice the noise floor, the largest change that the
-   plain scan alone makes when its chunk goes from 64 to 32 or 128 (a sum
-   order change only): random weights through 48 SSM layers amplify a
-   one-ulp change of one layer's output, and in bf16 that floor is itself
-   far above 2.5%.
+   plain versions alone make when only a sum order changes (the SSD
+   scan's chunk, or the plain attention's key blocks for the hybrid):
+   random weights through dozens of recurrent layers amplify a one-ulp
+   change of one layer's output, and in bf16 that floor can itself be far
+   above 2.5%.
 5. End to end: ``repro_torch.launch.serve`` (PipeBoostEngine over 4
    logical devices + ServingEngine, 4 slots, max_len 1024) serves 8
    requests of 64-512 prompt tokens and 32 new tokens each, at full width:
-   pipeboost-opt-1.3b with 2 rank-16 adapters, then mamba2-780m with none.
-   Launch counts are reset just before and read just after each run;
-   every kernel of that run's path must have run (the SSD scan once per
-   prefill and layer).
+   pipeboost-opt-1.3b with 2 rank-16 adapters, then mamba2-780m and
+   recurrentgemma-2b with none.  Launch counts are reset just before and
+   read just after each run; every kernel of that run's path must have
+   run and no other (a model with a recurrent state: one scan per prefill
+   and layer of its kind, one flash launch per prefill and attention
+   layer).
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -74,8 +86,9 @@ SSD_BF16_REL = 2.0 ** -8     # SSD bf16 y: share of |plain y| ...
 SSD_BF16_MEAN = 1e-2         # ... plus this share of mean |plain y|
 SSD_F32_TOL = 2e-5           # SSD float32 y: share of max |plain y|
 SSD_STATE_TOL = 1e-4         # SSD final state: share of max |plain state|
+RGLRU_TOL = 1e-5             # RG-LRU y and h_T: share of max |plain|
 LOGIT_REL_TOL = 2.5e-2       # model logits: share of max |plain logit|
-FLOOR_MULT = 2.0             # SSM model logits: multiple of the noise floor
+FLOOR_MULT = 2.0             # recurrent models: multiple of the noise floor
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -160,7 +173,9 @@ def check_decode(torch, ops, dev, results):
     g = torch.Generator(device=dev).manual_seed(10)
     bf = torch.bfloat16
 
-    def make(B, C, Hq, Hkv, d, lens, fold, masked):
+    def make(B, C, Hq, Hkv, d, lens, fold, mask):
+        """``mask``: None, "random" (a quarter of the slots off) or "ring"
+        (the model's ring mask, as a windowed layer's decode builds it)."""
         q = torch.randn((B, 1, Hq, d), generator=g, device=dev).to(bf)
         k = torch.randn((B, C, Hkv, d), generator=g, device=dev).to(bf)
         v = torch.randn((B, C, Hkv, d), generator=g, device=dev).to(bf)
@@ -168,11 +183,15 @@ def check_decode(torch, ops, dev, results):
             if fold else None
         vn = torch.randn((B, 1, Hkv, d), generator=g, device=dev).to(bf) \
             if fold else None
-        sm = (torch.rand((B, C), generator=g, device=dev) > 0.25) \
-            if masked else None
-        return dict(q=q, k=k, v=v, lens=torch.tensor(lens, dtype=torch.int32,
-                                                     device=dev),
-                    kn=kn, vn=vn, sm=sm)
+        lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        sm = None
+        if mask == "random":
+            sm = torch.rand((B, C), generator=g, device=dev) > 0.25
+        elif mask == "ring":
+            j = torch.arange(C, device=dev)[None, :]
+            p = lens[:, None]
+            sm = (j < p) & ((p < C) | (j != p % C))
+        return dict(q=q, k=k, v=v, lens=lens, kn=kn, vn=vn, sm=sm)
 
     def run(x, plain=False):
         f = (lambda t: None if t is None else t.float()) if plain \
@@ -182,19 +201,25 @@ def check_decode(torch, ops, dev, results):
                                     v_new=f(x["vn"]), slot_mask=x["sm"])
 
     C = 1024
+    ragged = [0, 77, 600, C - 1]
     cases = {
-        "opt full cache + fold": (4, C, 32, 32, 64, [C - 1] * 4, True, False),
-        "opt ragged + fold": (4, C, 32, 32, 64, [0, 77, 600, C - 1], True,
-                              False),
-        "opt ragged": (4, C, 32, 32, 64, [0, 77, 600, C - 1], False, False),
+        "opt full cache + fold": (4, C, 32, 32, 64, [C - 1] * 4, True, None),
+        "opt ragged + fold": (4, C, 32, 32, 64, ragged, True, None),
+        "opt ragged": (4, C, 32, 32, 64, ragged, False, None),
         "opt slot mask + fold": (4, C, 32, 32, 64, [0, 300, C - 1, C - 1],
-                                 True, True),
+                                 True, "random"),
         "qwen3 GQA ragged + fold": (4, C, 16, 8, 128, [0, 513, 900, C - 1],
-                                    True, False),
+                                    True, None),
         "qwen3 GQA slot mask": (4, C, 16, 8, 128, [5, 64, 1000, C - 1],
-                                False, True),
+                                False, "random"),
+        "recurrentgemma G10 hd256 ring + fold": (4, C, 10, 1, 256, ragged,
+                                                 True, "ring"),
+        "recurrentgemma G10 hd256 slot mask + fold": (
+            4, C, 10, 1, 256, [0, 300, C - 1, C - 1], True, "random"),
+        "recurrentgemma G10 hd256 ragged": (4, C, 10, 1, 256, ragged, False,
+                                            None),
     }
-    worst, timed = 0.0, None
+    worst = 0.0
     for name, spec in cases.items():
         x = make(*spec)
         out = run(x)
@@ -205,45 +230,49 @@ def check_decode(torch, ops, dev, results):
         print(f"  decode {name}: max|kernel - plain| = {err:.3e}")
         require(err <= ATTN_TOL, f"decode {name}: {err} > {ATTN_TOL}")
         worst = max(worst, err)
-        if timed is None:
-            timed = (spec, x)
-    spec, x = timed
-    B, C, Hq, Hkv, d, lens, fold, _ = spec
-    per_set = nbytes(x["k"], x["v"])
-    sets = [x] + [make(*spec) for _ in range(n_copies(per_set) - 1)]
-    ms, paced_ms = time_ms(torch, "decode kernel",
-                           [lambda s=s: run(s) for s in sets], 200)
-    with ops.plain_versions():
-        plain_ms, _ = time_ms(torch, "decode plain",
-                              [lambda s=s: run(s) for s in sets], 5)
-    # SDPA over the cache with the same length mask (one key fewer than
-    # the kernel, which also folds the new token)
-    lib_sets = []
-    for s in sets:
-        mask = (torch.arange(C, device=dev)[None, :]
-                < s["lens"][:, None])[:, None, None, :]
-        lib_sets.append((s["q"].transpose(1, 2).contiguous(),
-                         s["k"].transpose(1, 2).contiguous(),
-                         s["v"].transpose(1, 2).contiguous(), mask))
-    F = torch.nn.functional
-    library_ms, _ = time_ms(torch, "decode SDPA", [
-        lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2],
-                                                   attn_mask=a[3])
-        for a in lib_sets], 50)
-    valid = sum(lens)
-    moved = (nbytes(x["q"], x["kn"], x["vn"], x["lens"])   # read once
-             + 2 * valid * Hkv * d * 2                     # valid K/V rows
-             + B * Hq * d * 2)                             # out
-    flops = 4 * Hq * d * (valid + (B if fold else 0))
-    b_ms, b_by = bound(moved, flops, "bfloat16")
-    print(f"  decode timed case {tuple(spec[:5])}, lens {lens}: kernel "
-          f"{ms:.4f} ms (host-paced {paced_ms:.4f} ms), plain "
-          f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by})")
-    results["decode_attention"] = dict(max_abs_err=worst, ms=ms,
-                                       paced_ms=paced_ms, plain_ms=plain_ms,
-                                       bound_ms=b_ms, bound_by=b_by,
-                                       library_ms=library_ms)
+
+    def timed(label, spec):
+        B, C, Hq, Hkv, d, lens, fold, _ = spec
+        x = make(*spec)
+        sets = [x] + [make(*spec)
+                      for _ in range(n_copies(nbytes(x["k"], x["v"])) - 1)]
+        ms, paced_ms = time_ms(torch, f"decode kernel {label}",
+                               [lambda s=s: run(s) for s in sets], 200)
+        with ops.plain_versions():
+            plain_ms, _ = time_ms(torch, f"decode plain {label}",
+                                  [lambda s=s: run(s) for s in sets], 5)
+        # SDPA over the cache with the same length mask (one key fewer
+        # than the kernel, which also folds the new token)
+        lib_sets = []
+        for s in sets:
+            mask = (torch.arange(C, device=dev)[None, :]
+                    < s["lens"][:, None])[:, None, None, :]
+            lib_sets.append((s["q"].transpose(1, 2).contiguous(),
+                             s["k"].transpose(1, 2).contiguous(),
+                             s["v"].transpose(1, 2).contiguous(), mask))
+        F = torch.nn.functional
+        library_ms, _ = time_ms(torch, f"decode SDPA {label}", [
+            lambda a=a: F.scaled_dot_product_attention(
+                a[0], a[1], a[2], attn_mask=a[3], enable_gqa=Hq != Hkv)
+            for a in lib_sets], 50)
+        valid = sum(lens)
+        moved = (nbytes(x["q"], x["kn"], x["vn"], x["lens"], x["sm"])
+                 + 2 * valid * Hkv * d * 2                 # valid K/V rows
+                 + B * Hq * d * 2)                         # out
+        flops = 4 * Hq * d * (valid + (B if fold else 0))
+        b_ms, b_by = bound(moved, flops, "bfloat16")
+        print(f"  decode timed {label} {tuple(spec[:5])}, lens {lens}: "
+              f"kernel {ms:.4f} ms (host-paced {paced_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        return dict(ms=ms, paced_ms=paced_ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+    main = timed("opt-1.3b", cases["opt full cache + fold"])
+    rg = timed("recurrentgemma-2b", cases[
+        "recurrentgemma G10 hd256 ring + fold"])
+    results["decode_attention"] = dict(max_abs_err=worst, **main,
+                                       at_recurrentgemma=rg)
 
 
 def check_flash(torch, ops, dev, results):
@@ -261,13 +290,16 @@ def check_flash(torch, ops, dev, results):
                                    **kw)
 
     cases = []
-    for tag, Hq, Hkv, d in (("opt", 32, 32, 64), ("qwen3", 16, 8, 128)):
+    for tag, Hq, Hkv, d in (("opt", 32, 32, 64), ("qwen3", 16, 8, 128),
+                            ("recurrentgemma", 10, 1, 256)):
         for S in (128, 512):
             cases.append((f"{tag} S={S} causal", (4, S, S, Hq, Hkv, d), {}))
         cases.append((f"{tag} S=512 window 128", (4, 512, 512, Hq, Hkv, d),
                       {"window": 128}))
         cases.append((f"{tag} 128 queries at q_offset 512",
                       (4, 128, 640, Hq, Hkv, d), {"q_offset": 512}))
+    cases.append(("recurrentgemma S=700 window 300 ragged",
+                  (2, 700, 700, 10, 1, 256), {"window": 300}))
     worst = 0.0
     for name, spec, kw in cases:
         x = make(*spec)
@@ -279,31 +311,39 @@ def check_flash(torch, ops, dev, results):
         print(f"  flash {name}: max|kernel - plain| = {err:.3e}")
         require(err <= ATTN_TOL, f"flash {name}: {err} > {ATTN_TOL}")
         worst = max(worst, err)
-    spec = (4, 512, 512, 32, 32, 64)       # opt-1.3b prefill, bucket 512
-    B, Sq, Sk, Hq, Hkv, d = spec
-    sets = [make(*spec) for _ in range(n_copies(4 * B * Sq * Hq * d * 2))]
-    ms, paced_ms = time_ms(torch, "flash kernel",
-                           [lambda s=s: run(s, {}) for s in sets], 100)
-    with ops.plain_versions():
-        plain_ms, _ = time_ms(torch, "flash plain",
-                              [lambda s=s: run(s, {}) for s in sets], 2)
-    F = torch.nn.functional
-    lib_sets = [[t.transpose(1, 2).contiguous() for t in s] for s in sets]
-    library_ms, _ = time_ms(torch, "flash SDPA", [
-        lambda a=a: F.scaled_dot_product_attention(a[0], a[1], a[2],
-                                                   is_causal=True)
-        for a in lib_sets], 50)
-    pairs = Sq * (Sq + 1) // 2               # causal (q, k) pairs per head
-    moved = 2 * nbytes(sets[0][0]) + nbytes(sets[0][1], sets[0][2])
-    flops = 4 * B * Hq * d * pairs
-    b_ms, b_by = bound(moved, flops, "bfloat16")
-    print(f"  flash timed case {spec} causal: kernel {ms:.4f} ms "
-          f"(host-paced {paced_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
-          f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    results["flash_attention"] = dict(max_abs_err=worst, ms=ms,
-                                      paced_ms=paced_ms, plain_ms=plain_ms,
-                                      bound_ms=b_ms, bound_by=b_by,
-                                      library_ms=library_ms)
+
+    def timed(label, spec):
+        B, Sq, Sk, Hq, Hkv, d = spec
+        sets = [make(*spec)
+                for _ in range(n_copies(4 * B * Sq * Hq * d * 2))]
+        ms, paced_ms = time_ms(torch, f"flash kernel {label}",
+                               [lambda s=s: run(s, {}) for s in sets], 100)
+        with ops.plain_versions():
+            plain_ms, _ = time_ms(torch, f"flash plain {label}",
+                                  [lambda s=s: run(s, {}) for s in sets], 2)
+        F = torch.nn.functional
+        lib_sets = [[t.transpose(1, 2).contiguous() for t in s]
+                    for s in sets]
+        library_ms, _ = time_ms(torch, f"flash SDPA {label}", [
+            lambda a=a: F.scaled_dot_product_attention(
+                a[0], a[1], a[2], is_causal=True, enable_gqa=Hq != Hkv)
+            for a in lib_sets], 50)
+        pairs = Sq * (Sq + 1) // 2           # causal (q, k) pairs per head
+        moved = 2 * nbytes(sets[0][0]) + nbytes(sets[0][1], sets[0][2])
+        flops = 4 * B * Hq * d * pairs
+        b_ms, b_by = bound(moved, flops, "bfloat16")
+        print(f"  flash timed {label} {spec} causal: kernel {ms:.4f} ms "
+              f"(host-paced {paced_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+              f"SDPA {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        return dict(ms=ms, paced_ms=paced_ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+    # opt-1.3b's prefill at bucket 512; recurrentgemma's one 512-token
+    # prompt (its prompts prefill one by one)
+    main = timed("opt-1.3b", (4, 512, 512, 32, 32, 64))
+    rg = timed("recurrentgemma-2b", (1, 512, 512, 10, 1, 256))
+    results["flash_attention"] = dict(max_abs_err=worst, **main,
+                                      at_recurrentgemma=rg)
 
 
 def check_lora(torch, ops, dev, results):
@@ -432,27 +472,117 @@ def check_ssd(torch, ops, dev, results):
                                bound_by=b_by, library_ms=None)
 
 
+def check_rglru(torch, ops, dev, results):
+    from repro_torch.kernels import rglru_scan as rg
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(14)
+    W = 2560                                  # recurrentgemma-2b lru_width
+    # the model's decays: a in (0.9, 0.999) at r = 1, gated by r in (0, 1)
+    lam = torch.log(torch.expm1(-torch.log(torch.linspace(
+        0.9, 0.999, W, device=dev)) / 8.0))
+
+    def make(B, S):
+        r = torch.sigmoid(torch.randn((B, S, W), generator=g, device=dev))
+        log_a = -8.0 * F.softplus(lam) * r
+        bx = torch.sqrt(1 - torch.exp(2 * log_a)) * torch.randn(
+            (B, S, W), generator=g, device=dev)
+        return log_a, bx
+
+    worst = 0.0
+    for B in (1, 4):
+        for S in (64, 300, 512):
+            for with_h0 in (False, True):
+                log_a, bx = make(B, S)
+                h0 = torch.randn((B, W), generator=g, device=dev) \
+                    if with_h0 else None
+                y, hT = ops.rglru_scan(log_a, bx, h0)
+                torch.cuda.synchronize()
+                with ops.plain_versions():
+                    yr, hr = ops.rglru_scan(log_a, bx, h0)
+                err = (y - yr).abs().max().item()
+                lim = RGLRU_TOL * yr.abs().max().item()
+                err_h = (hT - hr).abs().max().item()
+                lim_h = RGLRU_TOL * hr.abs().max().item()
+                tag = f"rglru B={B} S={S}{' from h0' if with_h0 else ''}"
+                print(f"  {tag}: max|y kernel - plain| = {err:.3e} (limit "
+                      f"{lim:.3e}), h_T {err_h:.3e} (limit {lim_h:.3e})")
+                require(err <= lim and err_h <= lim_h,
+                        f"{tag}: y {err} > {lim} or h_T {err_h} > {lim_h}")
+                require(bool(torch.isfinite(y).all()), f"{tag}: non-finite")
+                worst = max(worst, err)
+    B, S = 1, 512                            # one 512-token prefill
+    x = make(B, S)
+    sets = [x] + [make(B, S) for _ in range(n_copies(nbytes(*x)) - 1)]
+    ms, paced_ms = time_ms(torch, "rglru kernel",
+                           [lambda s=s: ops.rglru_scan(*s) for s in sets],
+                           200)
+    with ops.plain_versions():
+        plain_ms, _ = time_ms(torch, "rglru plain",
+                              [lambda s=s: ops.rglru_scan(*s) for s in sets],
+                              3)
+    # bytes: log_a and bx read once, y and h_T written once; operations:
+    # one exp and one multiply-add per element
+    moved = nbytes(*x) + B * S * W * 4 + B * W * 4
+    flops = 3 * B * S * W
+    b_ms, b_by = bound(moved, flops, "float32")
+    print(f"  rglru timed case B={B} S={S} W={W}: kernel {ms:.4f} ms "
+          f"(host-paced {paced_ms:.4f} ms), plain {plain_ms:.4f} ms, no "
+          f"library call, bound {b_ms:.4f} ms ({b_by}; {moved / 1e6:.2f} "
+          f"MB)")
+    results["rglru_scan"] = dict(max_abs_err=worst, ms=ms, paced_ms=paced_ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=None)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the model, kernels against plain
 # ---------------------------------------------------------------------------
 
-def check_model(torch, ops, dev, cfg):
-    """Kernels against plain versions through the whole model.  For an
-    SSM model the limit is the larger of LOGIT_REL_TOL and FLOOR_MULT times
-    the noise floor: the largest change of the plain run when only the
-    plain scan's chunk (its sum order) changes."""
+def sum_order_variants(cfg):
+    """Patches that change only a sum order of the plain versions this
+    model runs: the SSD scan's chunk (32 and 128 against 64) for SSM
+    layers; for a hybrid, the key blocks of the plain attention (flash 64
+    and 256 against 128, decode 256 and 1024 against 512)."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import transformer as T
+    counts = T.kind_counts(cfg)
+    out = []
+    if "ssm" in counts:
+        out += [[(ss, "ssd_scan_plain",
+                  functools.partial(ss.ssd_scan_plain, chunk=c))]
+                for c in (32, 128)]
+    if "rec" in counts:
+        out += [[(fa, "flash_attention_plain",
+                  functools.partial(fa.flash_attention_plain, block_k=fk)),
+                 (dec, "decode_attention_plain",
+                  functools.partial(dec.decode_attention_plain,
+                                    block_k=dk))]
+                for fk, dk in ((64, 256), (256, 1024))]
+    return out
+
+
+def check_model(torch, ops, dev, cfg):
+    """Kernels against plain versions through the whole model.  For a model
+    with a recurrent state (SSM or RG-LRU layers) the limit is the larger
+    of LOGIT_REL_TOL and FLOOR_MULT times the noise floor: the largest
+    change of the plain run when only a sum order of its plain versions
+    changes (``sum_order_variants``)."""
     from repro_torch.models import transformer as T
     gen = torch.Generator(device=dev).manual_seed(1)
     params = T.init_params(cfg, gen, device=dev)
     B, S = 4, 192
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                          device=dev)
-    ssm = cfg.layer_kinds() == ["ssm"] * cfg.n_layers
+    counts_by_kind = T.kind_counts(cfg)
+    recurrent = "ssm" in counts_by_kind or "rec" in counts_by_kind
     # attention rows end at ragged true lengths (right-padded, as the
-    # bucketed prefill sends them); SSM rows at one exact length
-    last = None if ssm else torch.tensor([S - 1, 130, 64, 17],
-                                         dtype=torch.int32, device=dev)
+    # bucketed prefill sends them); rows with a recurrent state at one
+    # exact length
+    last = None if recurrent else torch.tensor([S - 1, 130, 64, 17],
+                                               dtype=torch.int32,
+                                               device=dev)
     steps = torch.randint(0, cfg.vocab_size, (4, B), generator=gen,
                           device=dev)
 
@@ -472,14 +602,15 @@ def check_model(torch, ops, dev, cfg):
     floor = 0.0
     with ops.plain_versions():
         plain = run()
-        for chunk in ((32, 128) if ssm else ()):
-            with mock.patch.object(ss, "ssd_scan_plain", functools.partial(
-                    ss.ssd_scan_plain, chunk=chunk)):
+        for patches in (sum_order_variants(cfg) if recurrent else ()):
+            with contextlib.ExitStack() as stack:
+                for obj, name, fn in patches:
+                    stack.enter_context(mock.patch.object(obj, name, fn))
                 floor = max(floor, (run() - plain).abs().max().item())
-    L = cfg.n_layers
-    want = ({"flash_attention": 0, "decode_attention": 0, "ssd_scan": L}
-            if ssm else
-            {"flash_attention": L, "decode_attention": 4 * L, "ssd_scan": 0})
+    n_attn = counts_by_kind.get("attn", 0)
+    want = {"flash_attention": n_attn, "decode_attention": 4 * n_attn,
+            "ssd_scan": counts_by_kind.get("ssm", 0),
+            "rglru_scan": counts_by_kind.get("rec", 0)}
     require(all(counts[k] == n for k, n in want.items()),
             f"{cfg.name}: launches {counts}, expected {want}")
     require(bool(torch.isfinite(kern).all()), f"{cfg.name}: non-finite")
@@ -487,8 +618,8 @@ def check_model(torch, ops, dev, cfg):
     scale = plain.abs().max().item()
     limit = max(LOGIT_REL_TOL * scale, FLOOR_MULT * floor)
     agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    floor_note = (f", noise floor {floor:.3e} (plain scan at chunk 32 and "
-                  f"128 against 64)" if ssm else "")
+    floor_note = (f", noise floor {floor:.3e} (plain versions in another "
+                  f"sum order)" if recurrent else "")
     print(f"  {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.dtype}): logits {tuple(kern.shape)}, max|kernel - plain| = "
           f"{err:.3e} (max|logit| {scale:.3f}, 2.5% of it "
@@ -509,6 +640,7 @@ def end_to_end(torch, ops, arch, adapters, kernels):
     not)."""
     from repro_torch.configs.base import get_arch
     from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
     argv = ["--arch", arch, "--devices", "4", "--requests", "8",
             "--adapters", str(adapters), "--new-tokens", "32",
             "--prompt-len", "64-512", "--max-len", "1024", "--slots", "4",
@@ -545,10 +677,18 @@ def end_to_end(torch, ops, arch, adapters, kernels):
             require(n > 0, f"{name} never launched on the main path")
         else:
             require(n == 0, f"{name} launched off the {arch} path")
-    if "ssd_scan" in kernels:       # one scan per prefill and layer
+    by_kind = T.kind_counts(cfg)
+    if "ssm" in by_kind or "rec" in by_kind:
+        # a recurrent state: each prompt prefills alone, once through
+        # every layer
         n_prefills = int(res.hotpath["n_prefill_calls"])
-        require(n_prefills == 8 and counts["ssd_scan"] == 8 * cfg.n_layers,
-                f"{n_prefills} prefill calls, {counts['ssd_scan']} scans")
+        want = {"ssd_scan": 8 * by_kind.get("ssm", 0),
+                "rglru_scan": 8 * by_kind.get("rec", 0),
+                "flash_attention": 8 * by_kind.get("attn", 0)}
+        require(n_prefills == 8
+                and all(counts[k] == n for k, n in want.items()),
+                f"{n_prefills} prefill calls, launches {counts}, expected "
+                f"{want}")
     return counts
 
 
@@ -563,6 +703,7 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lora_merge as lm
+    from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import ssd_scan as ssd
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -594,6 +735,7 @@ def main() -> int:
     check_flash(torch, ops, dev, results)
     check_lora(torch, ops, dev, results)
     check_ssd(torch, ops, dev, results)
+    check_rglru(torch, ops, dev, results)
     torch.cuda.empty_cache()
 
     print("== phase 4: model, kernels against plain versions")
@@ -604,26 +746,43 @@ def main() -> int:
     check_model(torch, ops, dev, dataclasses.replace(mamba2,
                                                      dtype="float32"))
     check_model(torch, ops, dev, mamba2)
+    rgemma = get_arch("recurrentgemma-2b")   # full width and depth
+    check_model(torch, ops, dev, dataclasses.replace(rgemma,
+                                                     dtype="float32"))
+    check_model(torch, ops, dev, rgemma)
 
     print("== phase 5: end to end")
-    attn_counts = end_to_end(torch, ops, "pipeboost-opt-1.3b", 2,
-                             ("decode_attention", "flash_attention",
-                              "lora_merge"))
-    ssm_counts = end_to_end(torch, ops, "mamba2-780m", 0, ("ssd_scan",))
+    serve_counts = {
+        "pipeboost-opt-1.3b": end_to_end(
+            torch, ops, "pipeboost-opt-1.3b", 2,
+            ("decode_attention", "flash_attention", "lora_merge")),
+        "mamba2-780m": end_to_end(torch, ops, "mamba2-780m", 0,
+                                  ("ssd_scan",)),
+        "recurrentgemma-2b": end_to_end(
+            torch, ops, "recurrentgemma-2b", 0,
+            ("decode_attention", "flash_attention", "rglru_scan")),
+    }
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     kernels = []
-    for mod, counts in ((dec, attn_counts), (fa, attn_counts),
-                        (lm, attn_counts), (ssd, ssm_counts)):
+    for mod in (dec, fa, lm, ssd, rg):
         name = mod.__name__.rsplit(".", 1)[1]
         r = results[name]
-        kernels.append({"name": name, "route": "cuda", "source": mod.SOURCE,
-                        "replaces": mod.REPLACES, "launches": counts[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "kernel_ms": r["ms"], "host_paced_ms": r["paced_ms"],
-                        "plain_ms": r["plain_ms"],
-                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+        # launches: every serve run of phase 5 whose path runs the kernel
+        by_arch = {arch: c[name] for arch, c in serve_counts.items()
+                   if c[name]}
+        entry = {"name": name, "route": "cuda", "source": mod.SOURCE,
+                 "replaces": mod.REPLACES,
+                 "launches": sum(by_arch.values()),
+                 "launches_by_arch": by_arch,
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "kernel_ms": r["ms"], "host_paced_ms": r["paced_ms"],
+                 "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": r["library_ms"]}
+        if "at_recurrentgemma" in r:
+            entry["at_recurrentgemma"] = r["at_recurrentgemma"]
+        kernels.append(entry)
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

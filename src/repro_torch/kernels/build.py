@@ -61,6 +61,8 @@ _SIGNATURES = {
     # S, H, P, N, stream
     "pb_ssd_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _STRIDES, _I,
                     _I, _I, _I, _I, _P],
+    # device, log_a, bx, h0 (or null), y, h_T, strides, B, S, W, stream
+    "pb_rglru_scan": [_I, _P, _P, _P, _P, _P, _STRIDES, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,6 @@
 // Shared helpers of the PipeBoost Hopper kernels: element conversion,
-// vector loads/stores of 2..16 bytes, warp reductions, dtype codes.
+// vector loads/stores (16-byte accesses at most), warp reductions, dtype
+// codes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,28 +36,45 @@ template <> struct VecOf<8> { using type = uint2; };
 template <> struct VecOf<16> { using type = uint4; };
 
 // Load N consecutive elements (N * sizeof(T) bytes, naturally aligned) as
-// one vector access and widen them to float.
+// one vector access, or as 16-byte accesses where they are wider, and
+// widen them to float.
 template <typename T, int N>
 __device__ __forceinline__ void load_vec(const T* __restrict__ p,
                                          float* out) {
-  using V = typename VecOf<N * sizeof(T)>::type;
-  const V raw = *reinterpret_cast<const V*>(p);
-  T v[N];
-  memcpy(v, &raw, sizeof(V));
+  constexpr int BYTES = N * (int)sizeof(T);
+  if constexpr (BYTES > 16) {
+    constexpr int M = 16 / (int)sizeof(T);
+    static_assert(N % M == 0, "wide vectors split into 16-byte pieces");
 #pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = to_float(v[i]);
+    for (int i = 0; i < N; i += M) load_vec<T, M>(p + i, out + i);
+  } else {
+    using V = typename VecOf<BYTES>::type;
+    const V raw = *reinterpret_cast<const V*>(p);
+    T v[N];
+    memcpy(v, &raw, sizeof(V));
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = to_float(v[i]);
+  }
 }
 
 template <typename T, int N>
 __device__ __forceinline__ void store_vec(T* __restrict__ p,
                                           const float* in) {
-  using V = typename VecOf<N * sizeof(T)>::type;
-  T v[N];
+  constexpr int BYTES = N * (int)sizeof(T);
+  if constexpr (BYTES > 16) {
+    constexpr int M = 16 / (int)sizeof(T);
+    static_assert(N % M == 0, "wide vectors split into 16-byte pieces");
 #pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = from_float<T>(in[i]);
-  V raw;
-  memcpy(&raw, v, sizeof(V));
-  *reinterpret_cast<V*>(p) = raw;
+    for (int i = 0; i < N; i += M) store_vec<T, M>(p + i, in + i);
+  } else {
+    using V = typename VecOf<BYTES>::type;
+    T v[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = from_float<T>(in[i]);
+    V raw;
+    memcpy(&raw, v, sizeof(V));
+    *reinterpret_cast<V*>(p) = raw;
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float x) {

@@ -11,12 +11,17 @@
 //
 // Bound on the H100: the bytes of the valid K/V rows (every row is read
 // once, two FMAs per element), far below the 295 FLOP/byte ridge.  Design:
-// one CTA per (batch row, KV head) serves all G query heads of that group,
+// one CTA per (batch row, KV head) serves the G query heads of that group,
 // so each K/V row is read from memory once per group, not once per query
-// head.  The CTA's 8 warps stream disjoint runs of 8 cache rows each; a
-// lane holds hd/32 elements of a row, so one warp reads one whole row per
-// load instruction and keeps 16 row loads in flight.  Each warp keeps its
-// own (m, l, acc) online-softmax state in registers; the 8 states merge
+// head.  A group wider than a CTA holds (8 heads at hd <= 128, 5 at hd 256,
+// where the per-warp partial states fill the 48 KB of static shared memory
+// and q and the accumulators the registers) is split evenly over CTAs on
+// the grid's third dimension: recurrentgemma's 10 heads of 256 run as two
+// CTAs of 5, each reading the K/V rows (the second read mostly from L2).
+// The CTA's 8 warps stream disjoint runs of 4 or 8 cache rows each; a lane
+// holds hd/32 elements of a row, so one warp reads one whole row per load
+// instruction and keeps 8-16 row loads in flight.  Each warp keeps its own
+// (m, l, acc) online-softmax state in registers; the 8 states merge
 // through shared memory at the end, where the new token is folded in.
 // Only rows below the row's valid length are visited.
 //
@@ -38,24 +43,31 @@ struct DecodeArgs {
   void* out;
   long long q_sb, q_sh, k_sb, k_sh, k_sc, v_sb, v_sh, v_sc;
   long long kn_sb, kn_sh, vn_sb, vn_sh, sm_sb, o_sb, o_sh;
-  int C, G;
+  int C, G, Gc;          // group size, query heads per CTA
   float scale;
 };
+
+// query heads one CTA serves at most, by head dim
+__host__ __device__ constexpr int max_heads_per_cta(int hd) {
+  return hd >= 256 ? 5 : 8;
+}
 
 template <typename T, int HD, int MAXG>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_attention_kernel(const DecodeArgs a) {
   constexpr int EPL = HD / 32;                 // elements per lane
-  constexpr int ROWS = MAXG >= 8 ? 4 : 8;      // cache rows per warp step
+  constexpr int ROWS = (MAXG >= 8 || HD >= 256) ? 4 : 8;  // rows per step
   __shared__ float s_m[kWarps][MAXG];
   __shared__ float s_l[kWarps][MAXG];
   __shared__ float s_acc[kWarps][MAXG][HD];
 
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int G = a.G;
+  const int g0 = blockIdx.z * a.Gc;            // this CTA's first head
+  const int G = min(a.Gc, a.G - g0);           // and its number of heads
+  const int hq0 = kvh * a.G + g0;              // query head of g = 0
   const T* q = static_cast<const T*>(a.q) + b * a.q_sb
-               + (long long)kvh * G * a.q_sh;
+               + (long long)hq0 * a.q_sh;
   const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
   const uint8_t* sm = a.slot_mask ? a.slot_mask + b * a.sm_sb : nullptr;
@@ -182,21 +194,22 @@ decode_attention_kernel(const DecodeArgs a) {
 #pragma unroll
     for (int e = 0; e < EPL; ++e) A[e] /= L;
     T* o = static_cast<T*>(a.out) + b * a.o_sb
-           + (long long)(kvh * G + g) * a.o_sh;
+           + (long long)(hq0 + g) * a.o_sh;
     store_vec<T, EPL>(o + lane * EPL, A);
   }
 }
 
 template <typename T, int HD>
-cudaError_t launch_hd(const DecodeArgs& a, int B, int Hkv,
-                      cudaStream_t stream) {
-  const dim3 grid(Hkv, B);
+cudaError_t launch_hd(DecodeArgs a, int B, int Hkv, cudaStream_t stream) {
+  constexpr int kMax = max_heads_per_cta(HD);
+  const int n_cta = (a.G + kMax - 1) / kMax;   // CTAs per group
+  a.Gc = (a.G + n_cta - 1) / n_cta;            // heads per CTA, even split
+  const dim3 grid(Hkv, B, n_cta);
   const dim3 block(kWarps * 32);
-  if (a.G <= 1) decode_attention_kernel<T, HD, 1><<<grid, block, 0, stream>>>(a);
-  else if (a.G <= 2) decode_attention_kernel<T, HD, 2><<<grid, block, 0, stream>>>(a);
-  else if (a.G <= 4) decode_attention_kernel<T, HD, 4><<<grid, block, 0, stream>>>(a);
-  else if (a.G <= 8) decode_attention_kernel<T, HD, 8><<<grid, block, 0, stream>>>(a);
-  else return cudaErrorInvalidValue;
+  if (a.Gc <= 1) decode_attention_kernel<T, HD, 1><<<grid, block, 0, stream>>>(a);
+  else if (a.Gc <= 2) decode_attention_kernel<T, HD, 2><<<grid, block, 0, stream>>>(a);
+  else if (a.Gc <= 4) decode_attention_kernel<T, HD, 4><<<grid, block, 0, stream>>>(a);
+  else decode_attention_kernel<T, HD, kMax><<<grid, block, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -205,6 +218,7 @@ cudaError_t launch_t(const DecodeArgs& a, int B, int Hkv, int hd,
                      cudaStream_t stream) {
   if (hd == 64) return launch_hd<T, 64>(a, B, Hkv, stream);
   if (hd == 128) return launch_hd<T, 128>(a, B, Hkv, stream);
+  if (hd == 256) return launch_hd<T, 256>(a, B, Hkv, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -7,16 +7,18 @@
 // a row with no valid key writes zeros.
 //
 // Bound on the H100: at the prefill shapes of the serving path (Sq = Sk <=
-// 1024, hd 64 or 128) the bytes of q, k, v and out and the tensor-core
+// 1024, hd 64, 128 or 256) the bytes of q, k, v and out and the tensor-core
 // time are of one order, so a kernel doing the products on the CUDA cores
 // in float32 (this one) is bound by its FMA rate, not by the card's.  That
 // is the simple first version: wgmma and TMA come later.  Design: one CTA
-// of 128 threads per (64-query block, query head, batch row); two threads
-// share a query row and each keeps half of the head dimension (q * scale
-// and the float32 accumulator) in registers, so a score is two half dot
-// products and one shuffle.  K/V tiles of 8 KB each are staged in shared
-// memory; all threads of a half read the same shared address (broadcast,
-// no bank conflicts).  The online softmax runs over chunks of 16 keys.
+// per (64-query block, query head, batch row); TPR threads share a query
+// row (two at hd 64 and 128, four at hd 256) and each keeps hd / TPR
+// dimensions of it (q * scale and the float32 accumulator, at most 64 + 64
+// registers) in registers, so a score is TPR partial dot products and one
+// or two shuffles.  K/V tiles of 8 KB each (16 keys at least: 16 KB at
+// float32 hd 256) are staged in shared memory; all threads of a part read the same shared address
+// (broadcast, no bank conflicts).  The online softmax runs over chunks of
+// 16 keys.
 // Key tiles that the causal mask or the window hides from every query of
 // the block are never loaded; the ragged edges (Sq, Sk not multiples of
 // the blocks) are masked in the kernel, so nothing is padded or copied.
@@ -30,8 +32,12 @@ namespace {
 using namespace pb;
 
 constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kThreads = 2 * kBQ;
 constexpr int kChunk = 16;     // keys per online-softmax update
+
+// threads sharing one query row: each holds at most 64 dims of q and acc
+__host__ __device__ constexpr int threads_per_row(int hd) {
+  return hd <= 128 ? 2 : hd / 64;
+}
 
 struct FlashArgs {
   const void* q; const void* k; const void* v; void* out;
@@ -42,11 +48,14 @@ struct FlashArgs {
 };
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBQ * threads_per_row(HD))
 flash_attention_kernel(const FlashArgs a) {
-  constexpr int HALF = HD / 2;                         // dims per thread
+  constexpr int TPR = threads_per_row(HD);
+  constexpr int kThreads = kBQ * TPR;
+  constexpr int PART = HD / TPR;                       // dims per thread
   constexpr int VEC = 16 / sizeof(T);                  // elements per 16 B
-  constexpr int BK = 8192 / (HD * (int)sizeof(T));     // keys per tile
+  constexpr int BK8K = 8192 / (HD * (int)sizeof(T));  // keys in 8 KB
+  constexpr int BK = BK8K > kChunk ? BK8K : kChunk;    // keys per tile
   static_assert(BK % kChunk == 0, "tile must hold whole chunks");
   constexpr int TILE_VECS = BK * HD * (int)sizeof(T) / 16;
   __shared__ uint4 ks_raw[TILE_VECS];      // raw 16-byte storage, viewed
@@ -56,22 +65,22 @@ flash_attention_kernel(const FlashArgs a) {
 
   const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / a.G;
-  const int t = threadIdx.x, row = t >> 1, half = t & 1;
+  const int t = threadIdx.x, row = t / TPR, part_i = t % TPR;
   const int qi = qb * kBQ + row;
   const bool row_ok = qi < a.Sq;
   const int qpos = a.q_offset + qi;
 
-  float qr[HALF];
+  float qr[PART];
   if (row_ok) {
     const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh
-                  + qi * a.q_ss + half * HALF;
+                  + qi * a.q_ss + part_i * PART;
 #pragma unroll
-    for (int c = 0; c < HALF; c += VEC) load_vec<T, VEC>(qp + c, qr + c);
+    for (int c = 0; c < PART; c += VEC) load_vec<T, VEC>(qp + c, qr + c);
 #pragma unroll
-    for (int e = 0; e < HALF; ++e) qr[e] *= a.scale;
+    for (int e = 0; e < PART; ++e) qr[e] *= a.scale;
   } else {
 #pragma unroll
-    for (int e = 0; e < HALF; ++e) qr[e] = 0.f;
+    for (int e = 0; e < PART; ++e) qr[e] = 0.f;
   }
 
   // keys any query of this block can see
@@ -86,9 +95,9 @@ flash_attention_kernel(const FlashArgs a) {
   const T* kbase = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* vbase = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
-  float m = kNegInf, l = 0.f, acc[HALF];
+  float m = kNegInf, l = 0.f, acc[PART];
 #pragma unroll
-  for (int e = 0; e < HALF; ++e) acc[e] = 0.f;
+  for (int e = 0; e < PART; ++e) acc[e] = 0.f;
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();                       // previous tile consumed
@@ -109,16 +118,19 @@ flash_attention_kernel(const FlashArgs a) {
       float s[kChunk];
 #pragma unroll
       for (int jj = 0; jj < kChunk; ++jj) {
-        const T* kr = ks + (c0 + jj) * HD + half * HALF;
+        const T* kr = ks + (c0 + jj) * HD + part_i * PART;
         float part = 0.f;
 #pragma unroll
-        for (int c = 0; c < HALF; c += VEC) {
+        for (int c = 0; c < PART; c += VEC) {
           float kf[VEC];
           load_vec<T, VEC>(kr + c, kf);
 #pragma unroll
           for (int e = 0; e < VEC; ++e) part += qr[c + e] * kf[e];
         }
-        s[jj] = part + __shfl_xor_sync(0xffffffffu, part, 1);
+#pragma unroll
+        for (int o = 1; o < TPR; o <<= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, o);
+        s[jj] = part;
       }
       float mc = kNegInf;
       bool ok[kChunk];
@@ -141,12 +153,12 @@ flash_attention_kernel(const FlashArgs a) {
       }
       l = l * corr + ps;
 #pragma unroll
-      for (int e = 0; e < HALF; ++e) acc[e] *= corr;
+      for (int e = 0; e < PART; ++e) acc[e] *= corr;
 #pragma unroll
       for (int jj = 0; jj < kChunk; ++jj) {
-        const T* vr = vs + (c0 + jj) * HD + half * HALF;
+        const T* vr = vs + (c0 + jj) * HD + part_i * PART;
 #pragma unroll
-        for (int c = 0; c < HALF; c += VEC) {
+        for (int c = 0; c < PART; c += VEC) {
           float vf[VEC];
           load_vec<T, VEC>(vr + c, vf);
 #pragma unroll
@@ -160,11 +172,11 @@ flash_attention_kernel(const FlashArgs a) {
   if (row_ok) {
     const float inv = 1.f / (l == 0.f ? 1.f : l);
 #pragma unroll
-    for (int e = 0; e < HALF; ++e) acc[e] *= inv;
+    for (int e = 0; e < PART; ++e) acc[e] *= inv;
     T* op = static_cast<T*>(a.out) + b * a.o_sb + h * a.o_sh + qi * a.o_ss
-            + half * HALF;
+            + part_i * PART;
 #pragma unroll
-    for (int c = 0; c < HALF; c += VEC) store_vec<T, VEC>(op + c, acc + c);
+    for (int c = 0; c < PART; c += VEC) store_vec<T, VEC>(op + c, acc + c);
   }
 }
 
@@ -172,8 +184,15 @@ template <typename T>
 cudaError_t launch_t(const FlashArgs& a, int B, int Hq, int hd,
                      cudaStream_t stream) {
   const dim3 grid((a.Sq + kBQ - 1) / kBQ, Hq, B);
-  if (hd == 64) flash_attention_kernel<T, 64><<<grid, kThreads, 0, stream>>>(a);
-  else if (hd == 128) flash_attention_kernel<T, 128><<<grid, kThreads, 0, stream>>>(a);
+  if (hd == 64)
+    flash_attention_kernel<T, 64><<<grid, kBQ * threads_per_row(64), 0,
+                                    stream>>>(a);
+  else if (hd == 128)
+    flash_attention_kernel<T, 128><<<grid, kBQ * threads_per_row(128), 0,
+                                     stream>>>(a);
+  else if (hd == 256)
+    flash_attention_kernel<T, 256><<<grid, kBQ * threads_per_row(256), 0,
+                                     stream>>>(a);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }

@@ -11,8 +11,9 @@ zeros.
 
 On the H100 the work is bound by the bytes of the valid K/V rows.  The
 kernel (``csrc/decode_attention.cu``) runs one CTA per (batch row, KV
-head) for all G query heads of the group, so each row is read once per
-group; its 8 warps stream disjoint runs of rows with their own online
+head) for the G query heads of the group (a group wider than 8 heads, or
+5 at head dim 256, is split evenly over CTAs), so each row is read once
+per CTA; its 8 warps stream disjoint runs of rows with their own online
 softmax state and merge at the end.
 
 Layouts: q (B, Hq, d); k/v (B, Hkv, C, d) — any strides with d innermost,
@@ -32,6 +33,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
 REPLACES = "src/repro/kernels/decode_attention.py:162"
+HEAD_DIMS = (64, 128, 256)     # the kernel's template head dims
 
 launches = 0          # kernel launches since the last reset
 
@@ -110,9 +112,8 @@ def decode_attention(q, k, v, lens, *, k_new=None, v_new=None,
              and k.shape[3] == d, f"cache shapes {tuple(k.shape)} / "
              f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
     Hkv, C = k.shape[1], k.shape[2]
-    _require(Hq % Hkv == 0 and Hq // Hkv <= 8,
-             f"needs Hq % Hkv == 0 and a group of <= 8 (Hq={Hq}, Hkv={Hkv})")
-    _require(d in (64, 128), f"head dim {d} not in (64, 128)")
+    _require(Hq % Hkv == 0, f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    _require(d in HEAD_DIMS, f"head dim {d} not in {HEAD_DIMS}")
     dev, dt = q.device, q.dtype
     build.dtype_code(dt)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):

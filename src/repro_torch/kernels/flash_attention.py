@@ -10,7 +10,7 @@ the serving path, i.e. the compute behind the time to first token.
 On the H100, at the serving path's prefill shapes, the kernel
 (``csrc/flash_attention.cu``) is bound by its own float32 FMA rate: it
 keeps q, the accumulator and the online softmax of two threads per query
-row in registers, stages K/V tiles in shared memory, masks ragged edges in
+row (four at head dim 256) in registers, stages K/V tiles in shared memory, masks ragged edges in
 the kernel (no padding copies) and never loads a key tile that the causal
 mask or the window hides from its whole query block.
 
@@ -31,6 +31,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:102"
+HEAD_DIMS = (64, 128, 256)     # the kernel's template head dims
 
 launches = 0          # kernel launches since the last reset
 
@@ -112,7 +113,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
              f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
     Hkv, Sk = k.shape[1], k.shape[2]
     _require(Hq % Hkv == 0, f"Hq={Hq} is not a multiple of Hkv={Hkv}")
-    _require(d in (64, 128), f"head dim {d} not in (64, 128)")
+    _require(d in HEAD_DIMS, f"head dim {d} not in {HEAD_DIMS}")
     _require(window >= 0 and q_offset >= 0, "window and q_offset are >= 0")
     dev, dt = q.device, q.dtype
     build.dtype_code(dt)

@@ -4,9 +4,9 @@
 The model keeps attention tensors as (B, S, H, d); the kernels take
 (B, H, S, d).  The adapters here pass transposed *views* (the kernels read
 any strides with d innermost), so no layout copy is made.  The SSD scan
-takes the model's layout as it is.  Each call goes to the kernel module's
-wrapper, which runs the CUDA kernel for CUDA tensors and the plain version
-for CPU tensors.
+and the RG-LRU scan take the model's layout as it is.  Each call goes to
+the kernel module's wrapper, which runs the CUDA kernel for CUDA tensors
+and the plain version for CPU tensors.
 
 ``plain_versions()`` routes every call to the plain versions instead, on
 any device — the way ``chip_smoke.py`` runs the same model on the card once
@@ -21,6 +21,7 @@ from typing import Iterator, Optional
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lora_merge as _lm
+from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import ssd_scan as _ssd
 
 _PLAIN = [False]
@@ -75,15 +76,25 @@ def ssd_scan(x, dt, A, Bm, Cm, initial_state=None):
     return fn(x, dt, A, Bm, Cm, initial_state)
 
 
+def rglru_scan(log_a, bx, h0=None):
+    """RG-LRU recurrence h_t = exp(log_a_t) h_{t-1} + bx_t: log_a/bx
+    (B,S,W) f32, h0 (B,W) f32 or None (zeros) -> (y (B,S,W) f32, h_T
+    (B,W) f32)."""
+    fn = _rg.rglru_scan_plain if _PLAIN[0] else _rg.rglru_scan
+    return fn(log_a, bx, h0)
+
+
 def reset_launch_counts() -> None:
     _dec.launches = 0
     _fa.launches = 0
     _lm.launches = 0
     _ssd.launches = 0
+    _rg.launches = 0
 
 
 def launch_counts():
     return {"decode_attention": _dec.launches,
             "flash_attention": _fa.launches,
             "lora_merge": _lm.launches,
-            "ssd_scan": _ssd.launches}
+            "ssd_scan": _ssd.launches,
+            "rglru_scan": _rg.launches}

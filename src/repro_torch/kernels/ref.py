@@ -1,9 +1,9 @@
 """Naive oracles for the ported kernels (the port of
 ``repro/kernels/ref.py``): the whole score matrix in memory, no tiling and
-no online softmax, and the SSD scan as its token-by-token recurrence, so a
-blocking bug in a kernel or its plain version cannot hide behind shared
-structure.  Tests only; nothing on the serving
-path calls these.
+no online softmax, and the SSD and RG-LRU scans as their token-by-token
+recurrences, so a blocking bug in a kernel or its plain version cannot
+hide behind shared structure.  Tests only; nothing on the serving path
+calls these.
 """
 from __future__ import annotations
 
@@ -79,3 +79,17 @@ def ssd_scan_ref(x, dt, A, Bm, Cm):
         ys.append(torch.einsum("bn,bhpn->bhp", ct, state))
     y = torch.stack(ys, dim=1) if ys else x.float()[:, :0]
     return y.to(x.dtype), state
+
+
+def rglru_scan_ref(log_a, bx, h0=None):
+    """Sequential oracle.  log_a/bx: (B,S,W) -> (h_seq (B,S,W) in log_a's
+    dtype, h_T (B,W) float32)."""
+    B, S, W = log_a.shape
+    h = (torch.zeros((B, W), dtype=torch.float32, device=log_a.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        h = torch.exp(log_a[:, t].float()) * h + bx[:, t].float()
+        ys.append(h)
+    y = torch.stack(ys, dim=1) if ys else log_a.float()[:, :0]
+    return y.to(log_a.dtype), h

@@ -6,6 +6,8 @@ merged-LoRA adapter epochs (the port of the single-server path of
         --arch pipeboost-opt-1.3b --requests 8 --adapters 2
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch mamba2-780m --requests 8 --adapters 0
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-2b --requests 8 --adapters 0
 
 runs on the card at the architecture's full published width, with random
 weights made from ``--seed``.  ``--device cpu`` runs on the CPU with the
@@ -17,8 +19,11 @@ ready after one loading round and fills the rest on a background thread;
 a ``ServingEngine`` with ``EpochSchedulerPolicy`` serves the requests
 (attention models: bucketed prefill through the flash-attention kernel,
 zero-copy decode through the decode kernel; mamba2: each prompt prefilled
-alone at its exact length through the SSD scan kernel, recurrent decode)
-with ``--adapters`` rank-16 adapters merged by the LoRA-merge kernel (an
+alone at its exact length through the SSD scan kernel, recurrent decode;
+recurrentgemma: each prompt prefilled alone at its exact length through
+the RG-LRU scan kernel and the flash kernel at head dim 256, decode
+through the decode kernel and the elementwise recurrent step) with
+``--adapters`` rank-16 adapters merged by the LoRA-merge kernel (an
 attention-free model's adapters are empty and merge as the identity).
 It prints ``cold_start_stats()``, the wall time to first token of each
 request, decode throughput and the generated tokens.

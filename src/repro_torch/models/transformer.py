@@ -1,13 +1,17 @@
-"""Model assembly for the dense/GQA decoder and the Mamba-2 SSM stack (the
-port of ``repro/models/transformer.py``, attention and SSM layers).
+"""Model assembly for the dense/GQA decoder, the Mamba-2 SSM stack and the
+RG-LRU + local-attention hybrid (the port of
+``repro/models/transformer.py``: attention, SSM and recurrent layers).
 
 Parameters keep the reference's layout: per-layer weights stacked on a
 leading layer axis per layer kind, ``params["blocks"][kind][name]`` of
 shape ``(L_kind, ...)``.  Caches keep the reference's leaves: attention
 ``(L, B, C, Hkv, hd)`` with per-slot positions in ``cache["pos"]``; SSM
 ``conv`` ``(L, B, K-1, d_inner+2N)`` in the model dtype and ``state``
-``(L, B, H, P, N)`` in float32.  The layer stack runs as a Python loop
-over the runs of equal kinds (eager PyTorch has no ``scan`` to compile).
+``(L, B, H, P, N)`` in float32; recurrent ``conv`` ``(L, B, K-1, W)`` in
+the model dtype and ``h`` ``(L, B, W)`` in float32.  The layer stack runs
+as a Python loop over the runs of equal kinds (eager PyTorch has no
+``scan`` to compile); a hybrid pattern such as ``rec, rec, attn`` becomes
+several short runs.
 
 Entry points:
   * ``forward(..., mode="train")``   -> (logits (B,S,V) f32, aux)
@@ -17,12 +21,12 @@ Entry points:
 ``decode_step`` is zero-copy: each attention layer only reads its cache
 slice and the current token's K/V row joins the softmax in the decode
 kernel; after the layer loop one in-place write puts every layer's row at
-``pos % C``.  SSM layers write their new conv window and state into their
-cache slices in place.  The cache passed in is updated in place — the
-analogue of the reference's donated cache — and returned.
+``pos % C``.  SSM and recurrent layers write their new conv window and
+state into their cache slices in place.  The cache passed in is updated in
+place — the analogue of the reference's donated cache — and returned.
 
-The MoE and recurrent layer kinds, hybrid patterns, M-RoPE and the audio
-family are not ported yet and raise ``NotImplementedError``.
+The MoE layer kind, M-RoPE and the audio family are not ported yet and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, rglru
 from repro_torch.models.layers import (_ACTS, apply_rope, dense_init,
                                        embed_init, rms_norm)
 
@@ -48,15 +52,15 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """The port runs dense/GQA attention decoders and all-SSM models (so
-    far)."""
+    """The port runs dense/GQA attention decoders, all-SSM models and
+    RG-LRU + attention hybrids (so far)."""
     kinds = set(cfg.layer_kinds())
-    if kinds not in ({"attn"}, {"ssm"}) or cfg.mrope \
+    if kinds not in ({"attn"}, {"ssm"}, {"attn", "rec"}) or cfg.mrope \
             or cfg.family == "audio":
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(kinds)}, mrope={cfg.mrope}, "
-            f"family={cfg.family} — only dense/GQA attention and all-SSM "
-            f"models are ported")
+            f"family={cfg.family} — only dense/GQA attention, all-SSM and "
+            f"RG-LRU hybrid models are ported")
 
 
 def kind_counts(cfg: ArchConfig) -> Dict[str, int]:
@@ -84,15 +88,11 @@ def _init_attn_layers(gen: torch.Generator, cfg: ArchConfig, L: int,
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    if cfg.gated_mlp:
-        mlp = {"w_gate": dense(L, D, cfg.d_ff), "w_up": dense(L, D, cfg.d_ff),
-               "w_down": dense(L, cfg.d_ff, D)}
-    else:
-        mlp = {"w_up": dense(L, D, cfg.d_ff), "w_down": dense(L, cfg.d_ff, D)}
     blk: Params = {
         "ln1": ones(L, D), "wq": dense(L, D, Hq * hd),
         "wk": dense(L, D, Hkv * hd), "wv": dense(L, D, Hkv * hd),
-        "wo": dense(L, Hq * hd, D), "ln2": ones(L, D), "mlp": mlp,
+        "wo": dense(L, Hq * hd, D), "ln2": ones(L, D),
+        "mlp": _init_mlp(gen, cfg, L, dtype, device),
     }
     if cfg.qkv_bias:
         blk.update(bq=zeros(L, Hq * hd), bk=zeros(L, Hkv * hd),
@@ -102,7 +102,28 @@ def _init_attn_layers(gen: torch.Generator, cfg: ArchConfig, L: int,
     return blk
 
 
-_LAYER_INIT = {"attn": _init_attn_layers, "ssm": mamba2.init_ssm_block}
+def _init_mlp(gen: torch.Generator, cfg: ArchConfig, L: int, dtype,
+              device) -> Params:
+    D, F = cfg.d_model, cfg.d_ff
+    if cfg.gated_mlp:
+        names = (("w_gate", D, F), ("w_up", D, F), ("w_down", F, D))
+    else:
+        names = (("w_up", D, F), ("w_down", F, D))
+    return {n: dense_init(gen, (L, a, b), dtype, device)
+            for n, a, b in names}
+
+
+def _init_rec_layers(gen: torch.Generator, cfg: ArchConfig, L: int, dtype,
+                     device) -> Params:
+    D = cfg.d_model
+    return {"ln1": torch.ones((L, D), dtype=dtype, device=device),
+            "rec": rglru.init_rec_block(gen, cfg, L, dtype, device),
+            "ln2": torch.ones((L, D), dtype=dtype, device=device),
+            "mlp": _init_mlp(gen, cfg, L, dtype, device)}
+
+
+_LAYER_INIT = {"attn": _init_attn_layers, "ssm": mamba2.init_ssm_block,
+               "rec": _init_rec_layers}
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=None,
@@ -158,6 +179,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
             "state": torch.zeros((L, batch, cfg.ssm_heads, cfg.ssm_head_dim,
                                   cfg.ssm_state), dtype=torch.float32,
                                  device=device)}
+    if "rec" in counts:
+        L, W = counts["rec"], cfg.lru_width or cfg.d_model
+        cache["rec"] = {
+            "conv": torch.zeros((L, batch, cfg.ssm_conv - 1, W), dtype=dtype,
+                                device=device),
+            "h": torch.zeros((L, batch, W), dtype=torch.float32,
+                             device=device)}
     return cache
 
 
@@ -246,6 +274,28 @@ def attn_layer_step(cfg, p, x, positions, k_cache, v_cache, cache_len):
     return x + _apply_mlp(cfg, p["mlp"], h2), k[:, 0], v[:, 0]
 
 
+def rec_layer_fwd(cfg, p, x, *, conv_state=None, h0=None):
+    """Full-sequence recurrent layer (its scan runs the RG-LRU kernel).
+    Returns (x, (conv_state, h_last))."""
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    y, state = rglru.rec_block_fwd(cfg, p["rec"], h, conv_state=conv_state,
+                                   h0=h0)
+    x = x + y
+    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+    return x + _apply_mlp(cfg, p["mlp"], h2), state
+
+
+def rec_layer_step(cfg, p, x, conv_state, h):
+    """Single-token recurrent layer. x: (B, 1, D); h: (B, W) float32.
+    Returns (x, conv_state, h_new)."""
+    hin = rms_norm(p["ln1"], x, cfg.norm_eps)
+    y, (conv_s, h_new) = rglru.rec_block_step(cfg, p["rec"], hin[:, 0],
+                                              conv_state, h)
+    x = x + y[:, None]
+    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+    return x + _apply_mlp(cfg, p["mlp"], h2), conv_s, h_new
+
+
 # ---------------------------------------------------------------------------
 # Full-model forward
 # ---------------------------------------------------------------------------
@@ -299,7 +349,8 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
     prompt token of right-padded (bucketed) prompts.  Logits are gathered
     there and ``cache["pos"]`` is ``last_index + 1``, so decode masks the
     pad K/V.  Only valid for pure attention with a full-length cache: an
-    SSM state would take in the pad tokens (callers gate on that).
+    SSM or recurrent state would take in the pad tokens (callers gate on
+    that).
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode {mode!r}")
@@ -308,22 +359,9 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
     B, S = x.shape[:2]
     want_cache = mode == "prefill"
     cap = attn_cache_capacity(cfg, max_len or S)
-    cache: Cache = {}
-    if want_cache:
-        counts = kind_counts(cfg)
-        if "attn" in counts:
-            kc = torch.zeros((counts["attn"], B, cap, cfg.n_kv_heads,
-                              cfg.resolved_head_dim), dtype=x.dtype,
-                             device=x.device)
-            cache["attn"] = {"k": kc, "v": torch.zeros_like(kc)}
-        if "ssm" in counts:
-            n, ch = counts["ssm"], cfg.d_inner + 2 * cfg.ssm_state
-            cache["ssm"] = {
-                "conv": torch.empty((n, B, cfg.ssm_conv - 1, ch),
-                                    dtype=x.dtype, device=x.device),
-                "state": torch.empty((n, B, cfg.ssm_heads, cfg.ssm_head_dim,
-                                      cfg.ssm_state), dtype=torch.float32,
-                                     device=x.device)}
+    # the prompt's states, written layer by layer (pos is set at the end)
+    cache: Cache = (init_cache(cfg, B, max_len or S, x.dtype, x.device)
+                    if want_cache else {})
     for kind, i in _layers(cfg):
         p = layer_params(params["blocks"][kind], i)
         if kind == "attn":
@@ -332,10 +370,11 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
                 _place_kv(cache["attn"]["k"][i], k, cap)
                 _place_kv(cache["attn"]["v"][i], v, cap)
         else:
-            x, (conv_s, state) = mamba2.ssm_block_fwd(cfg, p, x)
-            if want_cache:
-                cache["ssm"]["conv"][i].copy_(conv_s)
-                cache["ssm"]["state"][i].copy_(state)
+            fwd = mamba2.ssm_block_fwd if kind == "ssm" else rec_layer_fwd
+            x, states = fwd(cfg, p, x)
+            if want_cache:      # leaves in the order the block returns
+                for leaf, st in zip(cache[kind], states):
+                    cache[kind][leaf][i].copy_(st)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
 
     if mode == "train":
@@ -349,7 +388,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
     else:
         logits = unembed(cfg, params, x[:, -1:, :])[:, 0, :]
         pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    return logits, {"pos": pos, **cache}
+    return logits, {**cache, "pos": pos}
 
 
 def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
@@ -377,13 +416,18 @@ def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
                                         cache["attn"]["v"][i], pos)
             k_rows.append(kn)
             v_rows.append(vn)
-        else:
+        elif kind == "ssm":
             conv, state = cache["ssm"]["conv"][i], cache["ssm"]["state"][i]
             y, (conv_new, state_new) = mamba2.ssm_block_step(
                 cfg, p, x[:, 0], conv, state)
             conv.copy_(conv_new)
             state.copy_(state_new)
             x = y[:, None]
+        else:
+            conv, h = cache["rec"]["conv"][i], cache["rec"]["h"][i]
+            x, conv_new, h_new = rec_layer_step(cfg, p, x, conv, h)
+            conv.copy_(conv_new)
+            h.copy_(h_new)
     if k_rows:
         # the one post-loop row write of every layer, in place at pos % C
         kc, vc = cache["attn"]["k"], cache["attn"]["v"]

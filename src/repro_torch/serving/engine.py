@@ -2,10 +2,10 @@
 slot-indexed KV cache, with epoch-based LoRA adapter scheduling (the port
 of ``repro/serving/engine.py``).
 
-Slots: the batcher owns one cache of ``n_slots`` rows (attention K/V, or
-each SSM layer's conv window and state); a new request's prefill is
-written into a free slot while the other slots keep decoding, so requests
-join and leave the batch at token granularity.  Per-slot positions ride in
+Slots: the batcher owns one cache of ``n_slots`` rows (attention K/V, and
+each SSM or recurrent layer's conv window and state); a new request's
+prefill is written into a free slot while the other slots keep decoding,
+so requests join and leave the batch at token granularity.  Per-slot positions ride in
 ``cache["pos"]`` (n_slots,).
 
 Hot path:
@@ -19,8 +19,9 @@ Hot path:
   at the true prompt end (``forward(..., last_index=...)``) and
   ``cache["pos"]`` records the true length so decode masks the pad K/V.
   Bucketing needs a pure-attention model with a full-length cache
-  (``_can_bucket``); an SSM model prefills each prompt alone at its exact
-  length, since pad tokens would enter its running state.
+  (``_can_bucket``); an SSM or hybrid recurrent model prefills each prompt
+  alone at its exact length, since pad tokens would enter its running
+  state.
 * **Free slots are frozen**: their ``pos`` does not advance and their
   token passes through, so inactive lanes never reach the bookkeeping.
 
@@ -141,7 +142,7 @@ class ContinuousBatcher:
             max_len=self.max_len, last_index=last_idx)
         n = slots.shape[0]
         dst = slots.long()
-        for kind in ("attn", "ssm"):
+        for kind in ("attn", "ssm", "rec"):
             for leaf, rows in c1.get(kind, {}).items():
                 self.cache[kind][leaf].index_copy_(1, dst, rows[:, :n])
         self.cache["pos"].index_copy_(0, dst, c1["pos"][:n])

@@ -14,7 +14,9 @@ sums run over up to 128 terms of magnitude up to max|y|, so its float32 y
 is held within 2e-5 of max|plain y|; its bf16 y element by element within
 2^-8 |plain y| (half a bf16 ulp, the most one rounding moves it) plus
 1e-2 mean|plain y| (float32 sum order); its float32 state within 1e-4 of
-max|plain state|.
+max|plain state|.  The RG-LRU scan runs in float32 on both sides and
+differs by expf rounding and the kernel's segment carries: y and h_T
+within 1e-5 of max|plain y| (and of max|plain h_T|).
 """
 import pytest
 import torch
@@ -25,6 +27,7 @@ from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lora_merge as lm
 from repro_torch.kernels import ops
+from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models import transformer as T
 
@@ -57,6 +60,10 @@ def _gen(dev, seed=0):
     (3, 300, 8, 2, 64, False, False),        # ragged C, no fold
     (3, 96, 28, 4, 128, True, True),         # group of 7, ring slot mask
     (2, 77, 8, 8, 64, False, True),          # slot mask, no fold
+    (4, 1024, 10, 1, 256, True, True),       # recurrentgemma: G 10, ring
+    (3, 300, 10, 1, 256, False, False),      # G 10 at hd 256, ragged C
+    (2, 130, 20, 2, 256, True, False),       # two KV heads of 10
+    (2, 200, 32, 2, 128, True, True),        # group of 16: two CTAs of 8
 ])
 def test_decode_kernel_matches_plain(card, dtype, B, C, Hq, Hkv, d, fold,
                                      masked):
@@ -91,6 +98,9 @@ def test_decode_kernel_matches_plain(card, dtype, B, C, Hq, Hkv, d, fold,
     (4, 128, 128, 16, 8, 128, 0, 0),         # qwen3-1.7b GQA prefill
     (2, 300, 300, 16, 8, 128, 64, 0),        # window, ragged edge
     (2, 100, 612, 8, 2, 64, 0, 512),         # continued prefill
+    (1, 512, 512, 10, 1, 256, 0, 0),         # recurrentgemma prefill
+    (2, 600, 600, 10, 1, 256, 256, 0),       # hd 256, window < Sk
+    (1, 100, 612, 10, 1, 256, 0, 512),       # hd 256 continued prefill
 ])
 def test_flash_kernel_matches_plain(card, dtype, B, S, Sk, Hq, Hkv, d,
                                     window, q_offset):
@@ -168,6 +178,72 @@ def test_ssd_kernel_matches_plain(card, dtype, B, S, H, P, N, with_state):
     assert (st - sr).abs().max().item() <= 1e-4 * sr.abs().max().item()
 
 
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("B,S,W", [
+    (1, 512, 2560),              # recurrentgemma-2b prefill
+    (4, 300, 2560),              # ragged S, B > 1
+    (2, 77, 100),                # W not a multiple of the 32-channel block
+    (3, 5, 64),                  # fewer steps than the kernel's segments
+    (2, 1, 40),                  # one step
+])
+def test_rglru_kernel_matches_plain(card, B, S, W, with_state):
+    """Decays as the model makes them (a in (0.9, 0.999) gated by r), the
+    scan from zeros or from a given h0; a padded step (log_a = 0, bx = 0)
+    repeats the state."""
+    g = _gen(card, 7)
+    lam = torch.log(torch.expm1(-torch.log(torch.linspace(
+        0.9, 0.999, W, device=card)) / 8.0))
+    r = torch.sigmoid(torch.randn((B, S, W), generator=g, device=card))
+    log_a = -8.0 * F.softplus(lam) * r
+    bx = torch.sqrt(1 - torch.exp(2 * log_a)) * torch.randn(
+        (B, S, W), generator=g, device=card)
+    h0 = torch.randn((B, W), generator=g, device=card) if with_state \
+        else None
+    n0 = rg.launches
+    y, hT = ops.rglru_scan(log_a, bx, h0)
+    torch.cuda.synchronize()
+    assert rg.launches == n0 + 1
+    with ops.plain_versions():
+        yr, hr = ops.rglru_scan(log_a, bx, h0)
+    assert y.dtype == hT.dtype == torch.float32
+    assert y.shape == (B, S, W) and hT.shape == (B, W)
+    tol = 1e-5 * yr.abs().max().item()
+    assert (y - yr).abs().max().item() <= tol
+    assert (hT - hr).abs().max().item() <= 1e-5 * hr.abs().max().item()
+    assert torch.equal(y[:, -1], hT)
+    pad = torch.zeros((B, 1, W), device=card)
+    yp, hp = ops.rglru_scan(torch.cat([log_a, pad], 1),
+                            torch.cat([bx, pad], 1), h0)
+    assert torch.equal(yp[:, -1], hp)
+    assert (yp[:, :-1] - yr).abs().max().item() <= tol
+    assert (hp - hr).abs().max().item() <= 1e-5 * hr.abs().max().item()
+
+
+@pytest.mark.parametrize("what", ["bf16 log_a", "bf16 bx", "strided last dim",
+                                  "h0 shape", "bf16 h0", "shape mismatch"])
+def test_rglru_wrapper_rejects_what_the_kernel_does_not_take(card, what):
+    B, S, W = 2, 16, 64
+    log_a = torch.zeros((B, S, W), device=card)
+    bx = torch.zeros((B, S, W), device=card)
+    h0 = None
+    if what == "bf16 log_a":
+        log_a = log_a.to(torch.bfloat16)
+    elif what == "bf16 bx":
+        bx = bx.to(torch.bfloat16)
+    elif what == "strided last dim":
+        bx = torch.zeros((B, S, 2 * W), device=card)[..., ::2]
+    elif what == "h0 shape":
+        h0 = torch.zeros((B, 1, W), device=card)
+    elif what == "bf16 h0":
+        h0 = torch.zeros((B, W), device=card, dtype=torch.bfloat16)
+    else:
+        bx = bx[:, :-1]
+    n0 = rg.launches
+    with pytest.raises(ValueError):
+        rg.rglru_scan(log_a, bx, h0)
+    assert rg.launches == n0
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
     q = torch.zeros((2, 4, 80), device=card, dtype=torch.bfloat16)
     k = torch.zeros((2, 4, 16, 80), device=card, dtype=torch.bfloat16)
@@ -215,20 +291,31 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(card, what):
     assert ssd.launches == n0
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-780m",
+                                  "recurrentgemma-2b"])
 def test_model_kernels_match_plain(card, arch):
     """A small bf16 model with kernel-sized heads: prefill + 4 zero-copy
-    decode steps through the kernels against the plain versions."""
+    decode steps through the kernels against the plain versions (the
+    recurrentgemma prompt of 40 tokens overflows its window of 32, so its
+    ring buffer wraps)."""
     if arch == "qwen3-1.7b":
         cfg = get_arch(arch).reduced(n_layers=2, d_model=256, n_heads=4,
                                      n_kv_heads=2, head_dim=64,
                                      dtype="bfloat16")
-        want = {"flash_attention": 2, "decode_attention": 8, "ssd_scan": 0}
-    else:
+        want = {"flash_attention": 2, "decode_attention": 8, "ssd_scan": 0,
+                "rglru_scan": 0}
+    elif arch == "mamba2-780m":
         cfg = get_arch(arch).reduced(n_layers=2, d_model=256,
                                      ssm_head_dim=64, ssm_state=128,
                                      dtype="bfloat16")
-        want = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 2}
+        want = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 2,
+                "rglru_scan": 0}
+    else:
+        cfg = get_arch(arch).reduced(n_layers=3, d_model=256, n_heads=10,
+                                     n_kv_heads=1, head_dim=256,
+                                     lru_width=256, dtype="bfloat16")
+        want = {"flash_attention": 1, "decode_attention": 4, "ssd_scan": 0,
+                "rglru_scan": 2}
     params = T.init_params(cfg, _gen(card, 3), device=card)
     toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=_gen(card, 4),
                          device=card)

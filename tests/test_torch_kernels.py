@@ -42,6 +42,8 @@ def _close(a, b, tol=TOL):
     (2, 130, 4, 1, 64, 64, True, False),     # MQA + new-token fold
     (3, 96, 4, 2, 16, 32, False, True),      # ring slot mask
     (3, 100, 4, 2, 16, 32, True, True),      # slot mask + fold, ragged C
+    (2, 96, 10, 1, 256, 32, True, True),     # recurrentgemma: G 10, hd 256
+    (3, 200, 10, 1, 256, 64, False, False),  # G 10, hd 256, ragged C
 ])
 def test_decode_attention_plain_matches_pallas(B, C, Hq, Hkv, d, block_k,
                                                fold, masked):
@@ -116,6 +118,8 @@ def test_decode_attention_empty_rows_are_zero():
     (2, 130, 130, 4, 2, 16, True, 48, 0),     # sliding window
     (1, 40, 104, 4, 1, 32, True, 0, 64),      # continued prefill (q_offset)
     (2, 33, 70, 2, 2, 16, False, 0, 0),       # non-causal cross lengths
+    (1, 150, 150, 10, 1, 256, True, 0, 0),    # recurrentgemma: G 10, hd 256
+    (1, 150, 150, 10, 1, 256, True, 40, 0),   # hd 256, window < Sk
 ])
 def test_flash_attention_plain_matches_pallas(B, Sq, Sk, Hq, Hkv, d, causal,
                                               window, q_offset):

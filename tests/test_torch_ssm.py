@@ -136,7 +136,7 @@ def test_ssd_op_runs_plain_on_cpu_and_counts_no_launch(with_state):
         assert torch.equal(s, s0)
     assert tops.launch_counts() == {"decode_attention": 0,
                                     "flash_attention": 0, "lora_merge": 0,
-                                    "ssd_scan": 0}
+                                    "ssd_scan": 0, "rglru_scan": 0}
 
 
 @pytest.mark.parametrize("with_state", [False, True])
