@@ -11,13 +11,19 @@ Phases (any failure exits non-zero and prints no result line):
 1. Card: name, device count, ``nvidia-smi`` name and power limit.
 2. Build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) and print the
-   ``ptxas -v`` register, shared-memory and spill lines.
+   ``ptxas -v`` register, shared-memory and spill lines; read the
+   library's SASS (``cuobjdump -sass``) and print the product
+   instructions of each attention kernel (the bf16 flash kernels must hold
+   ``HGMMA``, Hopper's warpgroup tensor-core product, and the bf16 decode
+   kernels ``HMMA``, the warp-level one).
 3. Kernels against their plain PyTorch versions at the serving path's
    shapes (bf16), each output held against the plain version computed in
    float32 from the same bf16 inputs: attention within 2e-2 absolute (sum
    order plus one bf16 rounding of the output; recurrentgemma's group of
    10 query heads of 256 on one KV head among the cases, with its ring
-   slot mask and a window shorter than the keys), the LoRA merge within
+   slot mask and a window shorter than the keys; decode at the edges of
+   its cache splits and with every row empty; flash at 65 and 700 query
+   rows, ragged 64-row tiles, at every head dim), the LoRA merge within
    one bf16 ulp of |W'|.  The SSD scan runs from zeros and from a given
    state; its bf16 y is held element by element within 2^-8 |plain y|
    (half a bf16 ulp, the most one rounding moves it) plus 1e-2 mean |plain
@@ -33,7 +39,8 @@ Phases (any failure exits non-zero and prints no result line):
    two scans) and its bound: the larger of the bytes it must move over
    3.35 TB/s and its operations over the peak rate of their type (989
    TFLOP/s bf16, 67 TFLOP/s float32).  Decode and flash attention are
-   timed at opt-1.3b's shapes and again at recurrentgemma-2b's.
+   timed at opt-1.3b's shapes and again at recurrentgemma-2b's (decode
+   with its split count printed).
 4. Model: the same weights and teacher-forced tokens through prefill and 4
    zero-copy decode steps, once through the kernels and once through the
    plain versions, for pipeboost-opt-1.3b at full width (24 layers),
@@ -165,11 +172,39 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
+def product_instructions(build, lib_dir: Path):
+    """The product instructions in the SASS of each attention kernel:
+    {kernel (template arguments): sorted tensor-core opcodes}, from
+    ``cuobjdump -sass`` of the built library."""
+    import re
+    exe = Path(build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(exe), "-sass", str(lib_dir / build.LIB_NAME)],
+                         capture_output=True, text=True, timeout=300)
+    require(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    found, cur = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            m = re.search(r"(flash_bf16_kernel|flash_attention_kernel|"
+                          r"decode_partial_mma_kernel|decode_partial_kernel|"
+                          r"decode_merge_kernel)I(.*?)EEv", line)
+            cur = None
+            if m:
+                args = m.group(2).replace("13__nv_bfloat16", "bf16,")
+                args = re.sub(r"^f", "float32,", args)
+                args = re.sub(r"Li(\d+)E", r"\1,", args).rstrip(",")
+                cur = f"{m.group(1)}<{args}>"
+                found[cur] = set()
+        elif cur is not None:
+            found[cur].update(re.findall(r"\b(H[G]?MMA\.[\w.]+)", line))
+    return {k: sorted(v) for k, v in found.items()}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def check_decode(torch, ops, dev, results):
+    from repro_torch.kernels import decode_attention as dec
     g = torch.Generator(device=dev).manual_seed(10)
     bf = torch.bfloat16
 
@@ -219,6 +254,20 @@ def check_decode(torch, ops, dev, results):
         "recurrentgemma G10 hd256 ragged": (4, C, 10, 1, 256, ragged, False,
                                             None),
     }
+    # the edges of the cache splits: lens at 1, one split's width, one
+    # more, C - 1 (qwen3 at a C that is not a multiple of the width); then
+    # every row empty (every split empty)
+    for tag, Cx, Hq, Hkv, d in (("opt", C, 32, 32, 64),
+                                ("qwen3 GQA C=1000", 1000, 16, 8, 128),
+                                ("recurrentgemma G10 hd256", C, 10, 1, 256)):
+        width = -(-Cx // dec.decode_splits(4, Hkv, Cx, d))
+        edges = [1, width, width + 1, Cx - 1]
+        for fold in (True, False):
+            f = " + fold" if fold else ""
+            cases[f"{tag} split edges {edges}{f}"] = (4, Cx, Hq, Hkv, d,
+                                                      edges, fold, None)
+            cases[f"{tag} all rows empty{f}"] = (4, Cx, Hq, Hkv, d, [0] * 4,
+                                                 fold, None)
     worst = 0.0
     for name, spec in cases.items():
         x = make(*spec)
@@ -261,6 +310,10 @@ def check_decode(torch, ops, dev, results):
                  + B * Hq * d * 2)                         # out
         flops = 4 * Hq * d * (valid + (B if fold else 0))
         b_ms, b_by = bound(moved, flops, "bfloat16")
+        n = dec.decode_splits(B, Hkv, C, d)
+        print(f"  decode {label}: {n} splits of {-(-C // n)} rows x {Hkv} "
+              f"KV heads x {B} rows = {n * Hkv * B} CTAs, then a merge "
+              f"launch of {B * Hq * -(-d // 128)} CTAs")
         print(f"  decode timed {label} {tuple(spec[:5])}, lens {lens}: "
               f"kernel {ms:.4f} ms (host-paced {paced_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
@@ -298,6 +351,9 @@ def check_flash(torch, ops, dev, results):
                       {"window": 128}))
         cases.append((f"{tag} 128 queries at q_offset 512",
                       (4, 128, 640, Hq, Hkv, d), {"q_offset": 512}))
+        for S in (65, 700):                  # ragged 64-row tiles
+            cases.append((f"{tag} S={S} causal, ragged tiles",
+                          (2, S, S, Hq, Hkv, d), {}))
     cases.append(("recurrentgemma S=700 window 300 ragged",
                   (2, 700, 700, 10, 1, 256), {"window": 300}))
     worst = 0.0
@@ -728,6 +784,21 @@ def main() -> int:
         if any(w in line for w in ("registers", "spill", "Compiling entry",
                                    "error", "warning")):
             print("  " + line.strip())
+    instr = product_instructions(build, lib_dir)
+    for name, ops_ in sorted(instr.items()):
+        print(f"  {name}: products by "
+              + (", ".join(ops_) if ops_ else "CUDA-core FMA (no "
+                 "tensor-core instruction)"))
+    flash_tc = {k: v for k, v in instr.items()
+                if k.startswith("flash_bf16_kernel")}
+    require(len(flash_tc) == 3 and all(
+        any(op.startswith("HGMMA") for op in v) for v in flash_tc.values()),
+        f"bf16 flash kernels without HGMMA products: {flash_tc}")
+    decode_tc = {k: v for k, v in instr.items()
+                 if k.startswith("decode_partial_mma_kernel")}
+    require(len(decode_tc) == 3 and all(
+        any(op.startswith("HMMA") for op in v) for v in decode_tc.values()),
+        f"bf16 decode kernels without HMMA products: {decode_tc}")
 
     print("== phase 3: kernels against their plain versions")
     results = {}

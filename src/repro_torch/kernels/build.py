@@ -47,10 +47,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    # dtype, device, q, k, v, lens, k_new, v_new, slot_mask, out, strides,
-    # B, Hq, Hkv, C, hd, scale, stream
-    "pb_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _STRIDES,
-                            _I, _I, _I, _I, _I, _F, _P],
+    # dtype, device, q, k, v, lens, k_new, v_new, slot_mask, out,
+    # workspace, strides, B, Hq, Hkv, C, hd, splits, scale, stream
+    "pb_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _STRIDES, _I, _I, _I, _I, _I, _I, _F, _P],
     # dtype, device, q, k, v, out, strides, B, Hq, Hkv, Sq, Sk, hd, causal,
     # window, q_offset, scale, stream
     "pb_flash_attention": [_I, _I, _P, _P, _P, _P, _STRIDES, _I, _I, _I, _I,

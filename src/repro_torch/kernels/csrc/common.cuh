@@ -15,6 +15,10 @@ constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBF16 = 1;
 constexpr float kNegInf = -1e30f;   // the reference's NEG_INF mask value
 
+__device__ __forceinline__ float minus_inf() {  // a score that weighs 0
+  return __int_as_float(0xff800000u);
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);

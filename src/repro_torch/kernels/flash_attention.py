@@ -7,12 +7,16 @@ causal mask, a sliding ``window`` and ``q_offset`` for continued prefill,
 GQA by query head h reading KV head h // G.  It is the prefill attention of
 the serving path, i.e. the compute behind the time to first token.
 
-On the H100, at the serving path's prefill shapes, the kernel
-(``csrc/flash_attention.cu``) is bound by its own float32 FMA rate: it
-keeps q, the accumulator and the online softmax of two threads per query
-row (four at head dim 256) in registers, stages K/V tiles in shared memory, masks ragged edges in
-the kernel (no padding copies) and never loads a key tile that the causal
-mask or the window hides from its whole query block.
+On the H100 the kernel (``csrc/flash_attention.cu``) runs the bf16 path's
+products on the tensor cores: one warpgroup owns a 64-row query tile, S =
+Q K^T and O += P V are ``wgmma`` instructions (P from registers, rounded
+to bf16), and K/V tiles of 64 keys (32 at head dim 256) stream through a
+ring of 3-4 stages in shared memory filled by ``cp.async`` while earlier
+tiles are multiplied; query tiles run longest first.  The float32 path keeps the
+products on the CUDA cores in full float32 (two or four threads a query
+row).  Both mask ragged edges in the kernel (no padding copies) and never
+load a key tile that the causal mask or the window hides from its whole
+query tile.
 
 Layouts: q (B, Hq, Sq, d); k/v (B, Hkv, Sk, d) — any strides with d
 innermost, so model-layout (B, S, H, d) tensors pass as transposed views ->

@@ -63,7 +63,7 @@ def _gen(dev, seed=0):
     (4, 1024, 10, 1, 256, True, True),       # recurrentgemma: G 10, ring
     (3, 300, 10, 1, 256, False, False),      # G 10 at hd 256, ragged C
     (2, 130, 20, 2, 256, True, False),       # two KV heads of 10
-    (2, 200, 32, 2, 128, True, True),        # group of 16: two CTAs of 8
+    (2, 200, 32, 2, 128, True, True),        # group of 16: a whole mma tile
 ])
 def test_decode_kernel_matches_plain(card, dtype, B, C, Hq, Hkv, d, fold,
                                      masked):
@@ -92,6 +92,67 @@ def test_decode_kernel_matches_plain(card, dtype, B, C, Hq, Hkv, d, fold,
     assert (out.float() - ref).abs().max().item() <= TOL[dtype]
 
 
+def _decode_against_plain(card, dtype, q, k, v, lens, kn, vn, sm=None):
+    n0 = dec.launches
+    out = ops.decode_attention(q, k, v, lens, k_new=kn, v_new=vn,
+                               slot_mask=sm)
+    torch.cuda.synchronize()
+    assert dec.launches == n0 + 1
+    f = (lambda t: None if t is None else t.float())
+    with ops.plain_versions():
+        ref = ops.decode_attention(q.float(), k.float(), v.float(), lens,
+                                   k_new=f(kn), v_new=f(vn), slot_mask=sm)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert (out.float() - ref).abs().max().item() <= TOL[dtype]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("B,C,Hq,Hkv,d", [
+    (4, 1024, 32, 32, 64),       # opt-1.3b: 3 splits of 342 rows
+    (4, 1000, 16, 8, 128),       # C not a multiple of the split width
+    (4, 300, 10, 1, 256),        # recurrentgemma's group, C ragged
+    (4, 77, 2, 1, 64),           # two splits, group of 2
+])
+def test_decode_kernel_split_edges(card, dtype, fold, B, C, Hq, Hkv, d):
+    """lens at 1, exactly one split's width, one more than it and C - 1:
+    the split boundaries of ``decode_splits``, where a CTA's range is cut
+    by the valid length or empty."""
+    g = _gen(card, 8)
+    q = _rand((B, 1, Hq, d), dtype, card, g)
+    k = _rand((B, C, Hkv, d), dtype, card, g)
+    v = _rand((B, C, Hkv, d), dtype, card, g)
+    kn = _rand((B, 1, Hkv, d), dtype, card, g) if fold else None
+    vn = _rand((B, 1, Hkv, d), dtype, card, g) if fold else None
+    width = -(-C // dec.decode_splits(B, Hkv, C, d))
+    lens = torch.tensor([1, width, min(width + 1, C - 1), C - 1],
+                        dtype=torch.int32, device=card)
+    _decode_against_plain(card, dtype, q, k, v, lens, kn, vn)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("Hq,Hkv,d", [(32, 32, 64), (10, 1, 256)])
+def test_decode_kernel_all_rows_empty(card, dtype, fold, Hq, Hkv, d):
+    """Every row at lens 0, so every split is empty: zeros, or the new
+    token's value alone where it is folded in."""
+    B, C = 4, 1024
+    g = _gen(card, 9)
+    q = _rand((B, 1, Hq, d), dtype, card, g)
+    k = _rand((B, C, Hkv, d), dtype, card, g)
+    v = _rand((B, C, Hkv, d), dtype, card, g)
+    kn = _rand((B, 1, Hkv, d), dtype, card, g) if fold else None
+    vn = _rand((B, 1, Hkv, d), dtype, card, g) if fold else None
+    lens = torch.zeros((B,), dtype=torch.int32, device=card)
+    out = _decode_against_plain(card, dtype, q, k, v, lens, kn, vn)
+    if fold:
+        want = vn.repeat_interleave(Hq // Hkv, dim=2)
+        assert torch.equal(out, want)
+    else:
+        assert torch.all(out == 0)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,S,Sk,Hq,Hkv,d,window,q_offset", [
     (4, 512, 512, 32, 32, 64, 0, 0),         # opt-1.3b prefill
@@ -117,6 +178,27 @@ def test_flash_kernel_matches_plain(card, dtype, B, S, Sk, Hq, Hkv, d,
         ref = ops.flash_attention(q.float(), k.float(), v.float(),
                                   causal=True, window=window,
                                   q_offset=q_offset)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert (out.float() - ref).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [65, 700])
+@pytest.mark.parametrize("Hq,Hkv,d", [(8, 2, 64), (8, 4, 128), (10, 1, 256)])
+def test_flash_kernel_ragged_tiles(card, dtype, S, Hq, Hkv, d):
+    """Sq = Sk one past a 64-row tile (65) and ragged in the last of 11
+    (700), at every head dim: the query and key tiles' ragged edges."""
+    g = _gen(card, 10)
+    q = _rand((2, S, Hq, d), dtype, card, g)
+    k = _rand((2, S, Hkv, d), dtype, card, g)
+    v = _rand((2, S, Hkv, d), dtype, card, g)
+    n0 = fa.launches
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == n0 + 1
+    with ops.plain_versions():
+        ref = ops.flash_attention(q.float(), k.float(), v.float(),
+                                  causal=True)
     assert out.dtype == dtype and out.shape == ref.shape
     assert (out.float() - ref).abs().max().item() <= TOL[dtype]
 
@@ -253,6 +335,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError):
         dec.decode_attention(q[..., :64], k[..., :64].float(),
                              k[..., :64].float(), lens)      # mixed dtypes
+    with pytest.raises(ValueError):                          # group of 17
+        dec.decode_attention(torch.zeros((2, 17, 64), device=card,
+                                         dtype=torch.bfloat16),
+                             k[:, :1, :, :64], k[:, :1, :, :64], lens)
     with pytest.raises(ValueError):
         lm.lora_merge(torch.zeros((1, 8, 12), device=card),
                       torch.zeros((1, 8, 2), device=card),

@@ -36,6 +36,7 @@ def _close(a, b, tol=TOL):
 # decode attention
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("splits", [None, 1, 3, "kernel"])
 @pytest.mark.parametrize("B,C,Hq,Hkv,d,block_k,fold,masked", [
     (3, 256, 8, 8, 32, 128, False, False),   # MHA, lens 0 and C-1
     (3, 300, 8, 2, 32, 128, False, False),   # GQA, C not a block multiple
@@ -46,7 +47,10 @@ def _close(a, b, tol=TOL):
     (3, 200, 10, 1, 256, 64, False, False),  # G 10, hd 256, ragged C
 ])
 def test_decode_attention_plain_matches_pallas(B, C, Hq, Hkv, d, block_k,
-                                               fold, masked):
+                                               fold, masked, splits):
+    """``splits``: None for the plain version's own blocking; otherwise
+    the kernel's split of the cache (``"kernel"``: the count
+    ``decode_splits`` picks for this shape), merged in the kernel's order."""
     rng = np.random.default_rng(11)
     q = _rnd(rng, (B, 1, Hq, d))
     k = _rnd(rng, (B, C, Hkv, d))
@@ -64,10 +68,19 @@ def test_decode_attention_plain_matches_pallas(B, C, Hq, Hkv, d, block_k,
         block_k=block_k, interpret=True, **kw_j)
     kw_t = dict(k_new=torch.from_numpy(kn), v_new=torch.from_numpy(vn)) \
         if fold else {}
-    o_t = tops.decode_attention(
-        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-        torch.from_numpy(lens),
-        slot_mask=None if sm is None else torch.from_numpy(sm), **kw_t)
+    sm_t = None if sm is None else torch.from_numpy(sm)
+    if splits is None:
+        o_t = tops.decode_attention(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            torch.from_numpy(lens), slot_mask=sm_t, **kw_t)
+    else:
+        n = tdec.decode_splits(B, Hkv, C, d) if splits == "kernel" \
+            else splits
+        kw_t = {name: t.transpose(1, 2) for name, t in kw_t.items()}
+        o_t = tdec.decode_attention_plain(
+            torch.from_numpy(q[:, 0]), torch.from_numpy(k).transpose(1, 2),
+            torch.from_numpy(v).transpose(1, 2), torch.from_numpy(lens),
+            slot_mask=sm_t, splits=n, **kw_t)[:, None]
     assert o_t.shape == (B, 1, Hq, d)
     _close(o_t, o_j)
     # the naive oracles agree too: with the fold, the new token is the
@@ -94,6 +107,48 @@ def test_decode_attention_plain_matches_pallas(B, C, Hq, Hkv, d, block_k,
         slot_mask=None if sm_r is None else torch.from_numpy(sm_r))
     _close(r_t, r_j)
     _close(o_t[:, 0], r_t)
+
+
+@pytest.mark.parametrize("B,Hkv,C,d", [
+    (4, 32, 1024, 64), (4, 8, 1024, 128), (4, 1, 1024, 256),   # serving
+    (1, 1, 1, 64), (2, 1, 77, 64), (4, 8, 1000, 128), (3, 2, 4099, 256),
+    (1, 1, 65536, 128), (64, 8, 1024, 64),
+])
+def test_decode_splits_partition_the_cache(B, Hkv, C, d):
+    """Every cache row lies in exactly one split, no split is empty, and at
+    the serving shapes (opt-1.3b, qwen3-1.7b, recurrentgemma-2b decode at
+    4 slots of 1024) the splits give at least one CTA per SM."""
+    n = tdec.decode_splits(B, Hkv, C, d)
+    assert 1 <= n <= tdec.MAX_SPLITS
+    ranges = tdec.split_ranges(C, n)
+    assert ranges[0][0] == 0 and ranges[-1][1] == C
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(n - 1))
+    if C == 1024 and B == 4:
+        assert n * B * Hkv >= tdec.SMS
+
+
+def test_decode_attention_split_emulation_merges_empty_splits():
+    """Splits past a row's valid length (l = 0) are skipped in the merge:
+    rows at lens 0 give zeros, or the new token alone where it is folded
+    in; every split count agrees with the unsplit plain version."""
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(_rnd(rng, (3, 4, 16)))
+    k = torch.from_numpy(_rnd(rng, (3, 2, 50, 16)))
+    v = torch.from_numpy(_rnd(rng, (3, 2, 50, 16)))
+    kn = torch.from_numpy(_rnd(rng, (3, 2, 1, 16)))
+    vn = torch.from_numpy(_rnd(rng, (3, 2, 1, 16)))
+    lens = torch.tensor([0, 1, 49], dtype=torch.int32)
+    for fold in (False, True):
+        kw = dict(k_new=kn, v_new=vn) if fold else {}
+        ref = tdec.decode_attention_plain(q, k, v, lens, **kw)
+        for n in (1, 2, 7, 50):
+            out = tdec.decode_attention_plain(q, k, v, lens, splits=n, **kw)
+            _close(out, ref)
+        if fold:
+            assert torch.equal(out[0], vn[0, :, 0].repeat_interleave(2, 0))
+        else:
+            assert torch.all(out[0] == 0)
 
 
 def test_decode_attention_empty_rows_are_zero():
