@@ -11,11 +11,12 @@ Phases (any failure exits non-zero and prints no result line):
 1. Card: name, device count, ``nvidia-smi`` name and power limit.
 2. Build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) and print the
-   ``ptxas -v`` register, shared-memory and spill lines; read the
-   library's SASS (``cuobjdump -sass``) and print the product
-   instructions of each attention kernel (the bf16 flash kernels must hold
-   ``HGMMA``, Hopper's warpgroup tensor-core product, and the bf16 decode
-   kernels ``HMMA``, the warp-level one).
+   ``ptxas -v`` register, shared-memory and spill lines of every kernel;
+   read the library's SASS (``cuobjdump -sass``) and print the product
+   instructions of each attention, SSD and LoRA kernel (the bf16 flash
+   kernels must hold ``HGMMA``, Hopper's warpgroup tensor-core product,
+   and the bf16 decode kernels and the bf16 SSD kernels of chunk states
+   and chunk outputs ``HMMA``, the warp-level one).
 3. Kernels against their plain PyTorch versions at the serving path's
    shapes (bf16), each output held against the plain version computed in
    float32 from the same bf16 inputs: attention within 2e-2 absolute (sum
@@ -40,7 +41,8 @@ Phases (any failure exits non-zero and prints no result line):
    3.35 TB/s and its operations over the peak rate of their type (989
    TFLOP/s bf16, 67 TFLOP/s float32).  Decode and flash attention are
    timed at opt-1.3b's shapes and again at recurrentgemma-2b's (decode
-   with its split count printed).
+   with its split count printed); the SSD scan at one 512-token prefill
+   and again at a 64-token one (a short serving prompt, one chunk).
 4. Model: the same weights and teacher-forced tokens through prefill and 4
    zero-copy decode steps, once through the kernels and once through the
    plain versions, for pipeboost-opt-1.3b at full width (24 layers),
@@ -173,9 +175,9 @@ def nbytes(*ts) -> int:
 
 
 def product_instructions(build, lib_dir: Path):
-    """The product instructions in the SASS of each attention kernel:
-    {kernel (template arguments): sorted tensor-core opcodes}, from
-    ``cuobjdump -sass`` of the built library."""
+    """The product instructions in the SASS of each attention, SSD and
+    LoRA kernel: {kernel (template arguments): sorted tensor-core
+    opcodes}, from ``cuobjdump -sass`` of the built library."""
     import re
     exe = Path(build.nvcc_path()).parent / "cuobjdump"
     out = subprocess.run([str(exe), "-sass", str(lib_dir / build.LIB_NAME)],
@@ -186,13 +188,17 @@ def product_instructions(build, lib_dir: Path):
         if "Function :" in line:
             m = re.search(r"(flash_bf16_kernel|flash_attention_kernel|"
                           r"decode_partial_mma_kernel|decode_partial_kernel|"
-                          r"decode_merge_kernel)I(.*?)EEv", line)
+                          r"decode_merge_kernel|ssd_chunk_state_mma_kernel|"
+                          r"ssd_chunk_out_mma_kernel|"
+                          r"ssd_chunk_state_f32_kernel|"
+                          r"ssd_chunk_out_f32_kernel|ssd_state_pass_kernel|"
+                          r"lora_merge_kernel)(?:I(.*?)EEv)?", line)
             cur = None
             if m:
-                args = m.group(2).replace("13__nv_bfloat16", "bf16,")
+                args = (m.group(2) or "").replace("13__nv_bfloat16", "bf16,")
                 args = re.sub(r"^f", "float32,", args)
                 args = re.sub(r"Li(\d+)E", r"\1,", args).rstrip(",")
-                cur = f"{m.group(1)}<{args}>"
+                cur = f"{m.group(1)}<{args}>" if args else m.group(1)
                 found[cur] = set()
         elif cur is not None:
             found[cur].update(re.findall(r"\b(H[G]?MMA\.[\w.]+)", line))
@@ -404,7 +410,6 @@ def check_flash(torch, ops, dev, results):
 
 def check_lora(torch, ops, dev, results):
     from repro_torch.kernels import lora_merge as lm
-    from repro_torch.kernels import ssd_scan as ssd
     g = torch.Generator(device=dev).manual_seed(12)
     L, D, r, scale = 24, 2048, 16, 2.0
     W = (torch.randn((L, D, D), generator=g, device=dev) * 0.03).to(
@@ -443,7 +448,6 @@ def check_lora(torch, ops, dev, results):
 
 
 def check_ssd(torch, ops, dev, results):
-    from repro_torch.kernels import ssd_scan as ss
     F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(13)
     H, P, N = 48, 64, 128                    # mamba2-780m
@@ -498,34 +502,39 @@ def check_ssd(torch, ops, dev, results):
                 require(bool(torch.isfinite(y.float()).all()),
                         f"{tag}: non-finite y")
                 worst = max(worst, diff.max().item())
-    B, S = 1, 512                            # one 512-token prefill
-    x = split(*make(B, S))
-    sets = [x] + [split(*make(B, S)) for _ in range(
-        n_copies(nbytes(x[0], x[1], x[3], x[4])) - 1)]
-    ms, paced_ms = time_ms(torch, "ssd kernel",
-                           [lambda s=s: ops.ssd_scan(*s) for s in sets], 200)
-    with ops.plain_versions():
-        plain_ms, _ = time_ms(torch, "ssd plain",
-                              [lambda s=s: ops.ssd_scan(*s) for s in sets], 5)
-    # bytes: each input read once, y and the final state written once;
-    # operations: per chunk of q rows (the kernel's chunk), the causal
-    # pairs of C B^T once, and per head G x over the pairs, C state and
-    # the state update x^T B
-    moved = (2 * nbytes(x[0]) + nbytes(x[1], x[2], x[3], x[4])
-             + B * H * P * N * 4)
-    flops = 0
-    for t0 in range(0, S, ss.CHUNK):
-        q = min(ss.CHUNK, S - t0)
-        pairs = q * (q + 1) // 2
-        flops += B * (2 * N * pairs + H * (2 * P * pairs + 4 * q * P * N))
-    b_ms, b_by = bound(moved, flops, "bfloat16")
-    print(f"  ssd timed case B={B} S={S} H={H} P={P} N={N}: kernel "
-          f"{ms:.4f} ms (host-paced {paced_ms:.4f} ms), plain "
-          f"{plain_ms:.4f} ms, no library call, bound {b_ms:.4f} ms "
-          f"({b_by}; {moved / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-    results["ssd_scan"] = dict(max_abs_err=worst, ms=ms, paced_ms=paced_ms,
-                               plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=None)
+
+    def timed(B, S):
+        x = split(*make(B, S))
+        sets = [x] + [split(*make(B, S)) for _ in range(
+            n_copies(nbytes(x[0], x[1], x[3], x[4])) - 1)]
+        ms, paced_ms = time_ms(torch, f"ssd kernel S={S}", [
+            lambda s=s: ops.ssd_scan(*s) for s in sets], 200)
+        with ops.plain_versions():
+            plain_ms, _ = time_ms(torch, f"ssd plain S={S}", [
+                lambda s=s: ops.ssd_scan(*s) for s in sets], 5)
+        # bytes: each input read once, y and the final state written
+        # once; operations: per chunk of q rows (64, the SSD kernel's
+        # chunk), the causal pairs of C B^T once, and per head G x over
+        # the pairs, C state and the state update x^T B
+        moved = (2 * nbytes(x[0]) + nbytes(x[1], x[2], x[3], x[4])
+                 + B * H * P * N * 4)
+        flops = 0
+        for t0 in range(0, S, 64):
+            q = min(64, S - t0)
+            pairs = q * (q + 1) // 2
+            flops += B * (2 * N * pairs
+                          + H * (2 * P * pairs + 4 * q * P * N))
+        b_ms, b_by = bound(moved, flops, "bfloat16")
+        print(f"  ssd timed case B={B} S={S} H={H} P={P} N={N}: kernel "
+              f"{ms:.4f} ms (host-paced {paced_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, no library call, bound {b_ms:.4f} ms "
+              f"({b_by}; {moved / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+        return dict(ms=ms, paced_ms=paced_ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    main = timed(1, 512)                     # one 512-token prefill
+    short = timed(1, 64)                     # a short serving prompt
+    results["ssd_scan"] = dict(max_abs_err=worst, **main, at_s64=short)
 
 
 def check_rglru(torch, ops, dev, results):
@@ -799,6 +808,12 @@ def main() -> int:
     require(len(decode_tc) == 3 and all(
         any(op.startswith("HMMA") for op in v) for v in decode_tc.values()),
         f"bf16 decode kernels without HMMA products: {decode_tc}")
+    ssd_tc = {k: v for k, v in instr.items()
+              if k.startswith(("ssd_chunk_state_mma_kernel",
+                               "ssd_chunk_out_mma_kernel"))}
+    require(len(ssd_tc) == 4 and all(
+        any(op.startswith("HMMA") for op in v) for v in ssd_tc.values()),
+        f"bf16 SSD kernels without HMMA products: {ssd_tc}")
 
     print("== phase 3: kernels against their plain versions")
     results = {}
@@ -851,8 +866,9 @@ def main() -> int:
                  "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"]}
-        if "at_recurrentgemma" in r:
-            entry["at_recurrentgemma"] = r["at_recurrentgemma"]
+        for extra in ("at_recurrentgemma", "at_s64"):
+            if extra in r:
+                entry[extra] = r[extra]
         kernels.append(entry)
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": kernels}))

@@ -57,10 +57,10 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _F, _P],
     # dtype, device, W, A, B, out, L, Din, Dout, r, scale, stream
     "pb_lora_merge": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # dtype, device, x, dt, A, Bm, Cm, y, state, h0 (or null), strides, B,
-    # S, H, P, N, stream
-    "pb_ssd_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _STRIDES, _I,
-                    _I, _I, _I, _I, _P],
+    # dtype, device, x, dt, A, Bm, Cm, y, state, h0 (or null), workspace,
+    # strides, B, S, H, P, N, P-block, stream
+    "pb_ssd_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _STRIDES,
+                    _I, _I, _I, _I, _I, _I, _P],
     # device, log_a, bx, h0 (or null), y, h_T, strides, B, S, W, stream
     "pb_rglru_scan": [_I, _P, _P, _P, _P, _P, _STRIDES, _I, _I, _I, _P],
 }

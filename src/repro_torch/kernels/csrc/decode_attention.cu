@@ -87,15 +87,6 @@ struct Geo {
   static_assert(LPR <= 32 && TR % RPW == 0, "tile geometry");
 };
 
-// programmatic dependent launch: the next kernel on the stream may start
-// (launch_dependents); wait for the previous one's results (wait)
-__device__ __forceinline__ void grid_dependents_launch() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void grid_dependency_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
 // merge online-softmax state (m2, l2, a2) into (m, l, a)
 template <int N>
 __device__ __forceinline__ void merge_state(float& m, float& l, float (&a)[N],

@@ -1,8 +1,8 @@
 // Hopper building blocks of the PipeBoost kernels: cp.async copies, the
 // 128-byte shared-memory swizzle, wgmma descriptors and the wgmma
 // instructions the flash-attention kernel issues, ldmatrix and the
-// warp-level mma the decode kernel issues (bf16 in, float32
-// accumulators).  wgmma needs sm_90a.
+// warp-level mma the decode and SSD kernels issue (bf16 in, float32
+// accumulators), and programmatic dependent launch.  wgmma needs sm_90a.
 //
 // Tile layout ("SW128"): a tile of `rows` rows of bf16 is stored as
 // column blocks of 64 elements (128 bytes a row); a block holds its rows
@@ -106,6 +106,15 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// programmatic dependent launch: the next kernel on the stream may start
+// (launch_dependents); wait for the previous one's results (wait)
+__device__ __forceinline__ void grid_dependents_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // S += A B with A (64 x 16) and B (16 x N) both K-major in shared memory

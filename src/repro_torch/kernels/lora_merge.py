@@ -7,9 +7,12 @@ W' = W + scale * (A @ B) over stacked layers, float32 accumulation, cast
 to W's dtype.
 
 On the H100 the merge is bound by the bytes of W read and W' written.  The
-kernel (``csrc/lora_merge.cu``) makes one streaming pass over W: each CTA
-stages its A row block and B column block in shared memory and adds the
-rank-r delta tile by tile, so the delta never exists in device memory.
+kernel (``csrc/lora_merge.cu``) makes one streaming pass over W with a
+persistent grid: each CTA walks a run of 64 x 128 tiles down a column
+strip, requests a tile's W before it computes the tile's rank-r delta
+(float32, register-tiled 8 x 8 a thread), stages B's column block once per
+strip and double-buffers A's row blocks, so the delta never exists in
+device memory.
 
 Layouts: W (L, Din, Dout) bfloat16 or float32; A (L, Din, r) and
 B (L, r, Dout) float32 (``init_lora``'s default) -> W' like W.  The wrapper
@@ -61,7 +64,8 @@ def lora_merge(W, A, B, scale: float):
     for t, name in ((W, "W"), (A, "A"), (B, "B")):
         _require(t.is_cuda and t.device == dev, f"{name} must be on {dev}")
         _require(t.is_contiguous(), f"{name} must be contiguous")
-    _require(W.data_ptr() % 16 == 0, "W must be 16-byte aligned")
+    _require(W.data_ptr() % 16 == 0 and B.data_ptr() % 16 == 0,
+             "W and B must be 16-byte aligned")
     _require(A.dtype == torch.float32 and B.dtype == torch.float32,
              f"A and B must be float32, got {A.dtype} / {B.dtype}")
     out = torch.empty_like(W)

@@ -11,9 +11,18 @@ token.
 
 On the H100, at a serving prefill, the bytes bound it (a few
 microseconds for x, y, B, C, dt and the final state).  The kernel
-(``csrc/ssd_scan.cu``) walks the chunks of one (row, head, 32 columns of
-P) inside one CTA with the state in shared memory, and does the products
-on the CUDA cores in float32: right first, far above that bound.
+(``csrc/ssd_scan.cu``) runs the chunked decomposition of
+[arXiv:2405.21060] §6 parallel over the chunks, in three launches chained
+as programmatic dependents: (1) each chunk's state contribution from a
+zero state, one CTA per (row, chunk, head, block of P), and C Bᵀ once
+per (row, chunk); (2) a pass over the chunks that turns the contributions
+into the state entering each chunk and the final state; (3) each chunk's
+outputs from its entering state.  bf16 products run on the tensor cores
+(``mma.sync``), with each float32 operand split into two bf16 parts;
+float32 products stay on the CUDA cores.  ``launches`` counts one per
+wrapper call.  ``ssd_scan_plain(..., phases=True)`` emulates the three
+phases on the CPU (``ssd_chunk_states``, ``ssd_state_pass``,
+``ssd_chunk_outputs``).
 
 Layouts: x (B, S, H, P) in the model dtype; dt (B, S, H) float32 (after
 softplus); A (H,) float32, negative; Bm/Cm (B, S, N) in x's dtype; an
@@ -40,11 +49,18 @@ launches = 0          # kernel launches since the last reset
 
 
 def ssd_scan_plain(x, dt, A, Bm, Cm, initial_state=None, *,
-                   chunk: int = CHUNK):
+                   chunk: int = CHUNK, phases: bool = False):
     """The plain version: ``_ssd_kernel``'s chunk loop in float32, over
     all rows and heads at once, from ``initial_state`` (B, H, P, N) or
     zeros.  A short last chunk is computed at its true length, which
-    equals the reference's dt = 0 padding exactly."""
+    equals the reference's dt = 0 padding exactly.  ``phases=True`` runs
+    the kernel's three phases instead (``ssd_chunk_states``,
+    ``ssd_state_pass``, ``ssd_chunk_outputs``)."""
+    if phases:
+        s, decay = ssd_chunk_states(x, dt, A, Bm, chunk=chunk)
+        entering, final = ssd_state_pass(s, decay, initial_state)
+        return ssd_chunk_outputs(x, dt, A, Bm, Cm, entering,
+                                 chunk=chunk), final
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     f32 = torch.float32
@@ -75,6 +91,76 @@ def ssd_scan_plain(x, dt, A, Bm, Cm, initial_state=None, *,
                  + torch.einsum("bkhp,bkn->bhpn", xc * w[..., None], bc))
         y[:, t0:t0 + Q] = yc
     return y.to(x.dtype), state
+
+
+def _chunked(t, chunk: int):
+    """(B, S, ...) -> (B, nc, chunk, ...) float32, zero rows past S (with
+    dt = 0 they are an exact no-op on the recurrence)."""
+    S = t.shape[1]
+    nc = -(-S // chunk)
+    t = t.float()
+    pad = nc * chunk - S
+    if pad:
+        t = torch.cat([t, t.new_zeros((t.shape[0], pad) + t.shape[2:])], 1)
+    return t.reshape((t.shape[0], nc, chunk) + t.shape[2:])
+
+
+def _chunk_cumsum(dt, A, chunk: int):
+    dtc = _chunked(dt, chunk)                           # (B, nc, Q, H)
+    return dtc, torch.cumsum(dtc * A.float(), dim=2)
+
+
+def ssd_chunk_states(x, dt, A, Bm, *, chunk: int = CHUNK):
+    """Phase 1: each chunk's contribution to the state from a zero state,
+    s_c = sum_k exp(cum_last - cum_k) dt_k x_k B_kᵀ (B, nc, H, P, N), and
+    its decay exp(cum_last) (B, nc, H)."""
+    dtc, cum = _chunk_cumsum(dt, A, chunk)
+    w = torch.exp(cum[:, :, -1:] - cum) * dtc           # (B, nc, Q, H)
+    s = torch.einsum("bckhp,bckn->bchpn", _chunked(x, chunk) * w[..., None],
+                     _chunked(Bm, chunk))
+    return s, torch.exp(cum[:, :, -1])
+
+
+def ssd_state_pass(s, decay, initial_state=None):
+    """Phase 2: the state entering each chunk (B, nc, H, P, N) and the
+    final state, S_0 = initial_state (or zeros), S_{c+1} = decay_c S_c +
+    s_c."""
+    Bsz, nc, H, P, N = s.shape
+    S = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=s.device)
+         if initial_state is None else initial_state.float())
+    entering = torch.empty_like(s)
+    for c in range(nc):
+        entering[:, c] = S
+        S = decay[:, c, :, None, None] * S + s[:, c]
+    return entering, S
+
+
+def ssd_chunk_outputs(x, dt, A, Bm, Cm, entering, *, chunk: int = CHUNK):
+    """Phase 3: y = G x + exp(cum_q) C S_inᵀ per chunk, with G = C Bᵀ ∘
+    exp(cum_q - cum_k) ∘ dt_k where q >= k, from the entering states."""
+    Bsz, S, H, P = x.shape
+    dtc, cum = _chunk_cumsum(dt, A, chunk)
+    cc = _chunked(Cm, chunk)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()[:, :, None]
+    seg = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).masked_fill(
+        ~causal, float("-inf"))                         # (B, nc, Q, K, H)
+    cb = torch.einsum("bcqn,bckn->bcqk", cc, _chunked(Bm, chunk))
+    G = cb[..., None] * torch.exp(seg) * dtc[:, :, None, :, :]
+    y = torch.einsum("bcqkh,bckhp->bcqhp", G, _chunked(x, chunk))
+    y = y + torch.exp(cum)[..., None] * torch.einsum(
+        "bcqn,bchpn->bcqhp", cc, entering)
+    return y.reshape(Bsz, -1, H, P)[:, :S].to(x.dtype)
+
+
+def p_block(B: int, S: int, H: int, P: int, dtype, sms: int) -> int:
+    """Columns of P a CTA of the chunk kernels takes: 64 in bf16 where P
+    allows it and the chunk kernels still have a CTA for each of the
+    card's ``sms`` SMs (half the CTAs, each re-reading the chunk's B or C
+    tile), else ``P_BLOCK`` (more CTAs for a short prompt)."""
+    ctas = B * -(-S // CHUNK) * H * (P // 64)
+    return (64 if dtype == torch.bfloat16 and P % 64 == 0 and ctas >= sms
+            else P_BLOCK)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -127,12 +213,19 @@ def ssd_scan(x, dt, A, Bm, Cm, initial_state=None):
         h0 = initial_state.contiguous()
     y = torch.empty((Bsz, S, H, P), dtype=dtype, device=dev)
     state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
+    # chunk states (B, nc, H, P, N), C Bᵀ (B, nc, 64, 64), decays (B, nc, H)
+    nc = -(-S // CHUNK)
+    ws = torch.empty((Bsz * nc * (H * P * N + CHUNK * CHUNK + H),),
+                     dtype=torch.float32, device=dev)
     st = build.strides((x, (0, 1, 2)), (dt, (0, 1, 2)), (Bm, (0, 1)),
                        (Cm, (0, 1)), (y, (0, 1, 2)))
     err = build.load().pb_ssd_scan(
         code, dev.index, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
         Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
-        build.ptr(h0), st, Bsz, S, H, P, N, build.stream_of(x))
+        build.ptr(h0), ws.data_ptr(), st, Bsz, S, H, P, N,
+        p_block(Bsz, S, H, P, dtype,
+                torch.cuda.get_device_properties(dev).multi_processor_count),
+        build.stream_of(x))
     build.check(err, "ssd_scan")
     launches += 1
     return y, state

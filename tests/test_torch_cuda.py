@@ -204,8 +204,14 @@ def test_flash_kernel_ragged_tiles(card, dtype, S, Hq, Hkv, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("L,Din,Dout,r", [(24, 2048, 2048, 16),
-                                          (3, 300, 200, 8)])
+@pytest.mark.parametrize("L,Din,Dout,r", [
+    (24, 2048, 2048, 16),        # opt-1.3b's attention projections
+    (3, 300, 200, 8),
+    (2, 700, 520, 1),            # rank 1; Din, Dout off the 64 x 128 tiles
+    (2, 129, 1032, 32),          # the largest rank
+    (4, 5, 136, 16),             # Din smaller than one tile
+    (1, 64, 8, 8),               # one tile, Dout of one column group
+])
 def test_lora_kernel_matches_plain(card, dtype, L, Din, Dout, r):
     g = _gen(card, 2)
     W = _rand((L, Din, Dout), dtype, card, g, 0.05)
@@ -229,10 +235,27 @@ def test_lora_kernel_matches_plain(card, dtype, L, Din, Dout, r):
     (4, 300, 48, 64, 128),       # ragged S, B > 1
     (2, 64, 8, 32, 16),          # one whole chunk, small N
     (3, 1, 4, 64, 100),          # one row, N not a power of two
+    (4, 300, 48, 64, 100),       # 64 columns of P a CTA, N % 8 != 0
+    (2, 200, 48, 64, 99),        # odd N
+    (2, 70, 4, 32, 7),           # odd N below one 16-column tile
 ])
 def test_ssd_kernel_matches_plain(card, dtype, B, S, H, P, N, with_state):
     """x, Bm and Cm are strided slices of one conv_out-like tensor, as in
     the model; the scan starts from a given state or from zeros."""
+    _check_ssd(card, dtype, B, S, H, P, N, with_state)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [0, 1, 63, 64, 65, 129, 1024])
+def test_ssd_kernel_chunk_edges(card, dtype, S, with_state):
+    """The edges of the kernel's 64-row chunks at mamba2-780m's heads, up
+    to max_len: no row, one row, one short of a chunk, a chunk, one more,
+    two chunks and one more, 16 chunks."""
+    _check_ssd(card, dtype, 2, S, 48, 64, 128, with_state)
+
+
+def _check_ssd(card, dtype, B, S, H, P, N, with_state):
     g = _gen(card, 6)
     di = H * P
     conv_out = _rand((B, S, di + 2 * N), dtype, card, g)
@@ -250,6 +273,9 @@ def test_ssd_kernel_matches_plain(card, dtype, B, S, H, P, N, with_state):
         yr, sr = ops.ssd_scan(x.float(), dt, A, Bm.float(), Cm.float(), h0)
     assert y.dtype == dtype and y.shape == yr.shape
     assert st.dtype == torch.float32 and st.shape == sr.shape == (B, H, P, N)
+    if S == 0:                   # no row: the final state is h0 or zeros
+        assert torch.equal(st, sr)
+        return
     assert bool(torch.isfinite(y.float()).all())
     diff = (y.float() - yr).abs()
     if dtype == torch.float32:
