@@ -32,17 +32,18 @@ Phases (any failure exits non-zero and prints no result line):
    within 2e-5 of max |plain y| (sum order only), and its float32 state
    within 1e-4 of max |plain state|.  The RG-LRU scan (float32, W 2560)
    runs from zeros and from a given h0, y and h_T within 1e-5 of max
-   |plain y| and max |plain h_T| (expf rounding and the kernel's segment
-   carries).  Each kernel is timed with CUDA events over many launches on
-   inputs rotated through more than the 50 MB L2 cache, beside its plain
-   version, one PyTorch library call where one computes the same function
-   (``library_ms``, a yardstick the port never calls; none does for the
-   two scans) and its bound: the larger of the bytes it must move over
-   3.35 TB/s and its operations over the peak rate of their type (989
-   TFLOP/s bf16, 67 TFLOP/s float32).  Decode and flash attention are
+   |plain y| and max |plain h_T| (expf rounding and the kernel's carries
+   across segments and cluster ranks); the most of its clusters the card
+   holds at once is printed.  Each kernel is timed with CUDA events over
+   many launches on inputs rotated through more than the 50 MB L2 cache,
+   beside its plain version, one PyTorch library call where one computes
+   the same function (``library_ms``, a yardstick the port never calls;
+   none does for the two scans) and its bound: the larger of the bytes it
+   must move over 3.35 TB/s and its operations over the peak rate of their
+   type (989 TFLOP/s bf16, 67 TFLOP/s float32).  Decode and flash attention are
    timed at opt-1.3b's shapes and again at recurrentgemma-2b's (decode
-   with its split count printed); the SSD scan at one 512-token prefill
-   and again at a 64-token one (a short serving prompt, one chunk).
+   with its split count printed); the SSD and RG-LRU scans at one
+   512-token prefill and again at a 64-token one (a short serving prompt).
 4. Model: the same weights and teacher-forced tokens through prefill and 4
    zero-copy decode steps, once through the kernels and once through the
    plain versions, for pipeboost-opt-1.3b at full width (24 layers),
@@ -57,7 +58,10 @@ Phases (any failure exits non-zero and prints no result line):
    scan's chunk, or the plain attention's key blocks for the hybrid):
    random weights through dozens of recurrent layers amplify a one-ulp
    change of one layer's output, and in bf16 that floor can itself be far
-   above 2.5%.
+   above 2.5%.  For the bf16 runs of those two models, both the kernel
+   run and the plain run are also held against the plain run in float32
+   of the same weights upcast, and both distances printed (no limit: they
+   say which bf16 run is further from float32).
 5. End to end: ``repro_torch.launch.serve`` (PipeBoostEngine over 4
    logical devices + ServingEngine, 4 slots, max_len 1024) serves 8
    requests of 64-512 prompt tokens and 32 new tokens each, at full width:
@@ -575,28 +579,35 @@ def check_rglru(torch, ops, dev, results):
                         f"{tag}: y {err} > {lim} or h_T {err_h} > {lim_h}")
                 require(bool(torch.isfinite(y).all()), f"{tag}: non-finite")
                 worst = max(worst, err)
-    B, S = 1, 512                            # one 512-token prefill
-    x = make(B, S)
-    sets = [x] + [make(B, S) for _ in range(n_copies(nbytes(*x)) - 1)]
-    ms, paced_ms = time_ms(torch, "rglru kernel",
-                           [lambda s=s: ops.rglru_scan(*s) for s in sets],
-                           200)
-    with ops.plain_versions():
-        plain_ms, _ = time_ms(torch, "rglru plain",
-                              [lambda s=s: ops.rglru_scan(*s) for s in sets],
-                              3)
-    # bytes: log_a and bx read once, y and h_T written once; operations:
-    # one exp and one multiply-add per element
-    moved = nbytes(*x) + B * S * W * 4 + B * W * 4
-    flops = 3 * B * S * W
-    b_ms, b_by = bound(moved, flops, "float32")
-    print(f"  rglru timed case B={B} S={S} W={W}: kernel {ms:.4f} ms "
-          f"(host-paced {paced_ms:.4f} ms), plain {plain_ms:.4f} ms, no "
-          f"library call, bound {b_ms:.4f} ms ({b_by}; {moved / 1e6:.2f} "
-          f"MB)")
-    results["rglru_scan"] = dict(max_abs_err=worst, ms=ms, paced_ms=paced_ms,
-                                 plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=None)
+    for B, S in ((1, 64), (1, 512), (4, 512)):
+        print(f"  rglru B={B} S={S} W={W}: {-(-W // 32) * B} clusters of "
+              f"{rg.CLUSTER} CTAs a call, at most "
+              f"{rg.max_active_clusters(dev.index, B, S, W)} at once "
+              f"(cudaOccupancyMaxActiveClusters)")
+
+    def timed(B, S):
+        x = make(B, S)
+        sets = [x] + [make(B, S) for _ in range(n_copies(nbytes(*x)) - 1)]
+        ms, paced_ms = time_ms(torch, f"rglru kernel S={S}", [
+            lambda s=s: ops.rglru_scan(*s) for s in sets], 200)
+        with ops.plain_versions():
+            plain_ms, _ = time_ms(torch, f"rglru plain S={S}", [
+                lambda s=s: ops.rglru_scan(*s) for s in sets], 3)
+        # bytes: log_a and bx read once, y and h_T written once;
+        # operations: one exp and one multiply-add per element
+        moved = nbytes(*x) + B * S * W * 4 + B * W * 4
+        flops = 3 * B * S * W
+        b_ms, b_by = bound(moved, flops, "float32")
+        print(f"  rglru timed case B={B} S={S} W={W}: kernel {ms:.4f} ms "
+              f"(host-paced {paced_ms:.4f} ms), plain {plain_ms:.4f} ms, no "
+              f"library call, bound {b_ms:.4f} ms ({b_by}; "
+              f"{moved / 1e6:.2f} MB)")
+        return dict(ms=ms, paced_ms=paced_ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    main = timed(1, 512)                     # one 512-token prefill
+    short = timed(1, 64)                     # a short serving prompt
+    results["rglru_scan"] = dict(max_abs_err=worst, **main, at_s64=short)
 
 
 # ---------------------------------------------------------------------------
@@ -651,7 +662,7 @@ def check_model(torch, ops, dev, cfg):
     steps = torch.randint(0, cfg.vocab_size, (4, B), generator=gen,
                           device=dev)
 
-    def run():
+    def run(cfg=cfg, params=params):
         lg, cache = T.forward(cfg, params, {"tokens": toks}, mode="prefill",
                               max_len=1024, last_index=last)
         out = [lg]
@@ -691,8 +702,30 @@ def check_model(torch, ops, dev, cfg):
           f"{LOGIT_REL_TOL * scale:.3e}{floor_note}; limit {limit:.3e}); "
           f"greedy agreement {agree:.3f}; launches {counts}")
     require(err <= limit, f"{cfg.name}: logits differ by {err} > {limit}")
+    if recurrent and cfg.dtype != "float32":
+        # which bf16 run is further from float32: the same weights upcast,
+        # through the plain versions in float32
+        params32 = _upcast(params)
+        with ops.plain_versions():
+            ref = run(dataclasses.replace(cfg, dtype="float32"), params32)
+        del params32
+        for tag, lg in (("kernel", kern), ("plain", plain)):
+            dist = (lg - ref).abs().max().item()
+            same = (lg.argmax(-1) == ref.argmax(-1)).float().mean().item()
+            print(f"  {cfg.name} {cfg.dtype} {tag} run against float32 plain "
+                  f"of the same weights: max|diff| = {dist:.3e} (max|logit| "
+                  f"{ref.abs().max().item():.3f}); greedy agreement "
+                  f"{same:.3f}")
+        del ref
     del params, kern, plain
     torch.cuda.empty_cache()
+
+
+def _upcast(tree):
+    """A copy of a parameter tree with every floating tensor in float32."""
+    if isinstance(tree, dict):
+        return {k: _upcast(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
 
 
 # ---------------------------------------------------------------------------

@@ -63,6 +63,8 @@ _SIGNATURES = {
                     _I, _I, _I, _I, _I, _I, _P],
     # device, log_a, bx, h0 (or null), y, h_T, strides, B, S, W, stream
     "pb_rglru_scan": [_I, _P, _P, _P, _P, _P, _STRIDES, _I, _I, _I, _P],
+    # device, B, S, W, out: clusters the card holds at once
+    "pb_rglru_max_active_clusters": [_I, _I, _I, _I, ctypes.POINTER(_I)],
 }
 
 _lock = threading.Lock()

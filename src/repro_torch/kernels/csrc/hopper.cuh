@@ -1,5 +1,6 @@
-// Hopper building blocks of the PipeBoost kernels: cp.async copies, the
-// 128-byte shared-memory swizzle, wgmma descriptors and the wgmma
+// Hopper building blocks of the PipeBoost kernels: cp.async copies,
+// thread-block clusters, mbarriers and stores into another CTA's shared
+// memory, the 128-byte shared-memory swizzle, wgmma descriptors and the wgmma
 // instructions the flash-attention kernel issues, ldmatrix and the
 // warp-level mma the decode and SSD kernels issue (bf16 in, float32
 // accumulators), and programmatic dependent launch.  wgmma needs sm_90a.
@@ -29,6 +30,20 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(ok ? 16 : 0));
 }
+// the first `bytes` (0-16) of 16 bytes from global to shared memory,
+// asynchronously, zeros after them (src must still be a valid address)
+__device__ __forceinline__ void cp_async16_n(uint32_t dst, const void* src,
+                                             int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+// 4 bytes from global to shared memory, asynchronously (through L1);
+// zeros when !ok (src must still be a valid address)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -36,6 +51,66 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// thread-block clusters: this CTA's rank, the cluster barrier (arrive and
+// wait apart; arrive releases this thread's memory operations to the
+// cluster, arrive_relaxed orders nothing) and the address of the same
+// shared variable in another CTA of the cluster (mapa)
+__device__ __forceinline__ int cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// mbarriers counting arrivals and transaction bytes: init (then a fence
+// that publishes the init to the cluster), an arrival that also expects
+// `bytes` more, a wait for the phase of the given parity to complete, and
+// a store of two floats into another CTA's shared memory that completes
+// `8` bytes on that CTA's mbarrier (addresses from mapa)
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+__device__ __forceinline__ void st_async_f32x2(uint32_t addr, float x,
+                                               float y, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 "
+      "[%0], {%1, %2}, [%3];\n"
+      :: "r"(addr), "f"(x), "f"(y), "r"(bar) : "memory");
 }
 
 // byte offset of 16-byte chunk c (8 bf16) of row r in an SW128 tile

@@ -8,10 +8,17 @@ h_t = exp(log_a_t) * h_{t-1} + bx_t per channel, from an optional h0.  It
 is the prefill of every recurrent layer of a hybrid model.
 
 On the H100 the bytes bound it (log_a and bx read once, y written once).
-The kernel (``csrc/rglru_scan.cu``) is channel-parallel over (b, w) and
-serial over t; each CTA of 32 channels splits time into 32 segments, one
-warp each, composes the carries between them through shared memory and
-runs each segment again from its carry.
+The kernel (``csrc/rglru_scan.cu``) splits time across a thread-block
+cluster of ``CLUSTER`` CTAs that owns 32 channels of one row: time runs in
+windows (one up to S = 512), rank k takes the k-th chunk of each window
+and each of its ``WARPS`` warps one segment of up to ``STEPS`` steps.
+Every input of a segment is requested at once into shared memory; each
+segment runs from zero to its decay product and end state, each CTA pushes
+its aggregate into every CTA of the cluster (distributed shared memory),
+and each segment runs again from its carry out of registers, so the inputs
+cross HBM once, in one launch.
+``rglru_scan_chunked`` runs the same decomposition in PyTorch (for the
+tests).
 
 Layouts: log_a, bx (B, S, W) float32 with the channel dimension
 contiguous; h0 (B, W) float32 or None (zeros) -> y (B, S, W) float32,
@@ -20,12 +27,19 @@ raises) and the plain version for CPU tensors.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
 
 SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
 REPLACES = "src/repro/kernels/rglru_scan.py:79"
+
+# the kernel's geometry (kCluster, kWarps, kSegSteps in csrc/rglru_scan.cu)
+CLUSTER = 8           # CTAs of a cluster, ranks along time
+WARPS = 4             # segments of a CTA in a window, one warp each
+STEPS = 16            # most steps of a segment
 
 launches = 0          # kernel launches since the last reset
 
@@ -44,6 +58,66 @@ def rglru_scan_plain(log_a, bx, h0=None):
         h = a[:, t] * h + bxf[:, t]
         y[:, t] = h
     return y, h.clone()
+
+
+def rglru_scan_chunked(log_a, bx, h0=None, *, cluster: int = CLUSTER,
+                       warps: int = WARPS, steps: int = STEPS):
+    """The kernel's decomposition in PyTorch, for the tests: windows of
+    ``cluster * warps * n`` steps (n = min(steps, ceil(S / (cluster *
+    warps)))), each split into ``cluster`` rank chunks of ``warps``
+    segments of n steps.  Each segment runs from zero to its decay product
+    P and end state E; a rank's aggregate composes its segments; the carry
+    into a segment folds the window's entering state through the ranks
+    before it, then through its rank's segments before it, and the segment
+    runs again from that carry.  The fold through all ranks enters the next
+    window (h0 the first).  Every product and sum in the kernel's order, in
+    float32 (the kernel fuses each multiply-add into one rounding)."""
+    B, S, W = log_a.shape
+    f32 = torch.float32
+    la, bxf = log_a.to(f32), bx.to(f32)
+    h = (torch.zeros((B, W), dtype=f32, device=log_a.device)
+         if h0 is None else h0.to(f32))
+    y = torch.empty((B, S, W), dtype=f32, device=log_a.device)
+    n = min(steps, -(-S // (cluster * warps)))
+    for tw in range(0, S, cluster * warps * n):
+        # each segment from zero: [rank][warp] -> (steps, a, bx, P, E)
+        segs = []
+        for r in range(cluster):
+            segs.append([])
+            for w in range(warps):
+                t0 = tw + (r * warps + w) * n
+                ts = range(t0, min(t0 + n, S))
+                a = [torch.exp(la[:, t]) for t in ts]
+                b = [bxf[:, t] for t in ts]
+                p, e = torch.ones_like(h), torch.zeros_like(h)
+                for ai, bi in zip(a, b):
+                    e = ai * e + bi
+                    p = p * ai
+                segs[-1].append((ts, a, b, p, e))
+        # each rank's aggregate over its segments
+        agg = []
+        for rank in segs:
+            P, E = torch.ones_like(h), torch.zeros_like(h)
+            for *_, p, e in rank:
+                E = p * E + e
+                P = P * p
+            agg.append((P, E))
+        # the carries, and each segment again from its carry
+        for r in range(cluster):
+            c_rank = h
+            for P, E in agg[:r]:
+                c_rank = P * c_rank + E
+            for w in range(warps):
+                c = c_rank
+                for *_, p, e in segs[r][:w]:
+                    c = p * c + e
+                ts, a, b, _, _ = segs[r][w]
+                for t, ai, bi in zip(ts, a, b):
+                    c = ai * c + bi
+                    y[:, t] = c
+        for P, E in agg:
+            h = P * h + E
+    return y, y[:, -1].clone()
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -87,3 +161,12 @@ def rglru_scan(log_a, bx, h0=None):
     build.check(err, "rglru_scan")
     launches += 1
     return y, h_T
+
+
+def max_active_clusters(device: int, B: int, S: int, W: int) -> int:
+    """How many of the kernel's clusters the card holds at once at a
+    (B, S, W) launch (``cudaOccupancyMaxActiveClusters``)."""
+    n = ctypes.c_int(0)
+    build.check(build.load().pb_rglru_max_active_clusters(
+        device, B, S, W, ctypes.byref(n)), "rglru_scan occupancy")
+    return n.value

@@ -15,8 +15,9 @@ is held within 2e-5 of max|plain y|; its bf16 y element by element within
 2^-8 |plain y| (half a bf16 ulp, the most one rounding moves it) plus
 1e-2 mean|plain y| (float32 sum order); its float32 state within 1e-4 of
 max|plain state|.  The RG-LRU scan runs in float32 on both sides and
-differs by expf rounding and the kernel's segment carries: y and h_T
-within 1e-5 of max|plain y| (and of max|plain h_T|).
+differs by expf rounding and the kernel's carries across segments and
+cluster ranks: y and h_T within 1e-5 of max|plain y| (and of max|plain
+h_T|).
 """
 import pytest
 import torch
@@ -288,11 +289,18 @@ def _check_ssd(card, dtype, B, S, H, P, N, with_state):
 
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("B,S,W", [
-    (1, 512, 2560),              # recurrentgemma-2b prefill
+    (1, 512, 2560),              # recurrentgemma-2b prefill: one window
     (4, 300, 2560),              # ragged S, B > 1
     (2, 77, 100),                # W not a multiple of the 32-channel block
-    (3, 5, 64),                  # fewer steps than the kernel's segments
+    (2, 77, 33),                 # rows not 16-byte aligned: 4-byte loads
+    (3, 5, 64),                  # fewer steps than the cluster's ranks
     (2, 1, 40),                  # one step
+    (1, 64, 2560),               # a short serving prompt
+    (2, 7, 40),                  # one step short of a step a rank
+    (1, 511, 2560),              # one window, its last segment a step short
+    (1, 513, 2560),              # a full window and one step
+    (2, 2048, 2560),             # several full windows
+    (1, 4097, 256),              # several windows, the last of one step
 ])
 def test_rglru_kernel_matches_plain(card, B, S, W, with_state):
     """Decays as the model makes them (a in (0.9, 0.999) gated by r), the
@@ -325,6 +333,32 @@ def test_rglru_kernel_matches_plain(card, B, S, W, with_state):
     assert torch.equal(yp[:, -1], hp)
     assert (yp[:, :-1] - yr).abs().max().item() <= tol
     assert (hp - hr).abs().max().item() <= 1e-5 * hr.abs().max().item()
+
+
+@pytest.mark.parametrize("offset,S", [(0, 300), (1, 300), (1, 513)])
+def test_rglru_kernel_reads_strided_views(card, offset, S):
+    """log_a and bx as views into wider buffers (16-byte aligned rows, and
+    rows one float off alignment), h_T bit for bit the last y."""
+    g = _gen(card, 8)
+    B, W = 2, 2560
+    buf = torch.randn((2, B, S, W + 8), generator=g, device=card)
+    log_a = buf[0, :, :, offset:offset + W]
+    log_a.copy_(-F.softplus(log_a.clone()))
+    bx = buf[1, :, :, offset:offset + W]
+    h0 = torch.randn((B, W), generator=g, device=card)
+    y, hT = ops.rglru_scan(log_a, bx, h0)
+    torch.cuda.synchronize()
+    with ops.plain_versions():
+        yr, hr = ops.rglru_scan(log_a, bx, h0)
+    assert (y - yr).abs().max().item() <= 1e-5 * yr.abs().max().item()
+    assert (hT - hr).abs().max().item() <= 1e-5 * hr.abs().max().item()
+    assert torch.equal(y[:, -1], hT)
+
+
+def test_rglru_kernel_clusters_fit_the_card(card):
+    """The card holds clusters of the kernel at recurrentgemma's width."""
+    for B, S in ((1, 64), (1, 512), (4, 512), (1, 4097)):
+        assert rg.max_active_clusters(card.index, B, S, 2560) >= 1
 
 
 @pytest.mark.parametrize("what", ["bf16 log_a", "bf16 bx", "strided last dim",

@@ -121,11 +121,24 @@ def test_attention_partials_match(window, slot_mask):
            LAYER_TOL)
 
 
+def _nonzero_qkv_biases(jparams):
+    """The reference initialises the QKV biases to zeros, which would leave
+    the bias path untested: draw them from N(0, 0.5^2) instead."""
+    rng = np.random.default_rng(5)
+    attn = dict(jparams["blocks"]["attn"])
+    for name in ("bq", "bk", "bv"):
+        attn[name] = jnp.asarray(_rnd(rng, attn[name].shape, 0.5))
+    return {**jparams, "blocks": {**jparams["blocks"], "attn": attn}}
+
+
+# case -> (reduced config, prompt length, max_len, edit of the weights)
 CASES = {
-    "opt": (lambda: jget_arch("pipeboost-opt-1.3b").reduced(), 21, 48),
-    "qwen3": (lambda: jget_arch("qwen3-1.7b").reduced(), 21, 48),
+    "opt": (lambda: jget_arch("pipeboost-opt-1.3b").reduced(), 21, 48, None),
+    "qwen3": (lambda: jget_arch("qwen3-1.7b").reduced(), 21, 48, None),
     "qwen3-ring": (lambda: jget_arch("qwen3-1.7b").reduced(attn_window=32),
-                   40, 64),
+                   40, 64, None),
+    "qwen2.5-qkv-bias": (lambda: jget_arch("qwen2.5-14b").reduced(), 21, 48,
+                         _nonzero_qkv_biases),
 }
 
 
@@ -133,13 +146,16 @@ CASES = {
 def test_forward_and_decode_match(case):
     """Prefill (padded rows with ``last_index`` where the cache is full
     length; a prompt longer than the window for the ring) plus six
-    teacher-forced zero-copy decode steps: logits and caches."""
-    make_cfg, S, max_len = CASES[case]
+    teacher-forced zero-copy decode steps: logits and caches.  The
+    qwen2.5 case holds the QKV-bias path, with its biases made non-zero."""
+    make_cfg, S, max_len, edit = CASES[case]
     jcfg = make_cfg()
     tcfg = get_arch(jcfg.name).reduced(
         **{f: getattr(jcfg, f) for f in ("attn_window",)})
     assert tcfg.__dict__ == jcfg.__dict__
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(3))
+    if edit is not None:
+        jparams = edit(jparams)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     rng = np.random.default_rng(7)
     B = 2
