@@ -70,7 +70,36 @@ Phases (any failure exits non-zero and prints no result line):
    read just after each run; every kernel of that run's path must have
    run and no other (a model with a recurrent state: one scan per prefill
    and layer of its kind, one flash launch per prefill and attention
-   layer).
+   layer).  Every serving batcher replays one captured decode step
+   (``decode_compiles`` 1).
+6. Recovery, for pipeboost-opt-1.3b, mamba2-780m and recurrentgemma-2b at
+   full width and depth (launch counts reset just before each model's
+   run and read just after):
+   - migration (bf16, the serving dtype): server A serves 4 requests of
+     64-512 prompt tokens to token 8 of 32 and drains them with
+     snapshots; server B, which shares A's parameter tensors and has
+     captured its decode step on an idle batch (for opt-1.3b, then
+     switched to each of 2 merged adapters and back, the switch's copy
+     timed), imports all four in one scatter and finishes them.  Every
+     stream must equal an uninterrupted run's, B prefills no token and
+     captures no second graph.  Snapshot bytes, export and import times and
+     the peak device memory are printed;
+   - partial crash (float32, see below): a ``PipeBoostEngine`` over 4
+     devices after one loading round prefills 4 rows of 256 tokens,
+     decodes 8, crashes device 1 and ``recover()``s, and decodes on to 32;
+     the stream must equal an uncrashed run's.  ``lost_state_layers``, the
+     reconstruct stats and ``recover()``'s wall time are printed;
+   - re-lay (float32): 4 live requests at token 8 lose the layers device 1
+     held (their state zeroed), ``relay_inflight`` rebuilds them in one
+     scatter, and every stream must equal an uninterrupted run's.  The
+     same re-lay in bf16 prints how many streams stayed equal (no limit).
+   Both rebuilds must launch flash (opt-1.3b, recurrentgemma-2b), the SSD
+   scan (mamba2-780m) and the RG-LRU scan (recurrentgemma-2b).  A rebuild
+   recomputes the lost layers through the prefill path, another sum order
+   than the decode steps that wrote them, and random bf16 weights amplify
+   such a change far past the quantized sampler's bins (phase 4's bf16
+   greedy agreements), so the exact-stream checks of a rebuild run in
+   float32.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -753,6 +782,8 @@ def end_to_end(torch, ops, arch, adapters, kernels):
             "not full width")
     require(all(r.done and len(r.generated) == 32 for r in res.requests),
             "not every request finished with 32 tokens")
+    require(res.hotpath["decode_compiles"] == 1,
+            f"decode captured {res.hotpath['decode_compiles']} times")
     require(all(0 <= t < cfg.padded_vocab
                 for r in res.requests for t in r.generated),
             "token out of range")
@@ -769,7 +800,8 @@ def end_to_end(torch, ops, arch, adapters, kernels):
     print(f"  launches on the main path: {counts} "
           f"({res.n_adapter_switches} adapter switches, "
           f"{int(res.hotpath['n_prefill_calls'])} prefill calls, "
-          f"{int(res.hotpath['n_decode_steps'])} decode steps)")
+          f"{int(res.hotpath['n_decode_steps'])} decode steps, "
+          f"{int(res.hotpath['decode_compiles'])} decode capture)")
     for name, n in counts.items():
         if name in kernels:
             require(n > 0, f"{name} never launched on the main path")
@@ -788,6 +820,244 @@ def end_to_end(torch, ops, arch, adapters, kernels):
                 f"{n_prefills} prefill calls, launches {counts}, expected "
                 f"{want}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6: recovery
+# ---------------------------------------------------------------------------
+
+RECOVERY_NEW = 32            # tokens a request generates
+RECOVERY_CUT = 8             # tokens before the drain, crash or re-lay
+
+
+def _synced(torch, fn):
+    """(fn(), wall seconds) with the device synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _server(S, cfg, params, adapter_params=None):
+    srv = S.ServingEngine(cfg, params, n_slots=4, max_len=1024,
+                          adapter_params=adapter_params)
+    srv.batcher.sampler = S.quantized_greedy
+    return srv
+
+
+def _requests(S, prompts):
+    return [S.ServeRequest(i, p, max_new_tokens=RECOVERY_NEW)
+            for i, p in enumerate(prompts)]
+
+
+def _serve_to_cut(srv, reqs):
+    for r in reqs:
+        srv.submit(r)
+    while min(len(r.generated) for r in reqs) < RECOVERY_CUT:
+        srv.step()
+    require(all(len(r.generated) == RECOVERY_CUT for r in reqs),
+            "requests out of step")
+
+
+def _uninterrupted(S, cfg, params, prompts):
+    srv = _server(S, cfg, params)
+    reqs = _requests(S, prompts)
+    for r in reqs:
+        srv.submit(r)
+    srv.run()
+    require(srv.batcher.compile_stats()["decode_compiles"] == 1,
+            f"decode captured {srv.batcher.compile_stats()} times")
+    return [r.generated for r in reqs]
+
+
+def _delta(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _require_rebuild(counts, rebuild_kernels, what):
+    print(f"    {what} launches: {counts}")
+    for name in rebuild_kernels:
+        require(counts[name] > 0, f"{what} never launched {name}")
+
+
+def recovery(torch, ops, dev, arch, adapters, kernels, rebuild_kernels):
+    """Phase 6 for one model at full width and depth; ``kernels`` are the
+    kernels of its recovery path (each must launch, the others must not),
+    ``rebuild_kernels`` those a rebuild must launch."""
+    import numpy as np
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.engine import PipeBoostEngine
+    from repro_torch.lora.adapters import init_lora, merge_lora, \
+        randomize_lora
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as S
+    cfg = get_arch(arch)
+    print(f"  {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.dtype})")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    params = T.init_params(cfg, gen, device=dev)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(L))
+               for L in rng.integers(64, 513, size=4)]
+    out = {}
+
+    # -- migration, in the serving dtype ---------------------------------
+    want = _uninterrupted(S, cfg, params, prompts)
+    a = _server(S, cfg, params)
+    reqs = _requests(S, prompts)
+    _serve_to_cut(a, reqs)
+    drained, export_s = _synced(torch, a.drain_inflight)
+    require(len(drained) == 4 and all(r.snapshot for r in drained),
+            "drain lost a snapshot")
+    snap_bytes = [r.snapshot.nbytes() for r in drained]
+    snap_pos = [r.snapshot.pos for r in drained]
+    merged = {}
+    for i in range(adapters):
+        lora = randomize_lora(gen, init_lora(gen, cfg, rank=16,
+                                             name=f"lora{i}", device=dev))
+        merged[f"lora{i}"] = merge_lora(params, lora)
+    b = _server(S, cfg, params, merged)
+    b.batcher.warm_decode()
+    b.batcher.warm_import()
+    switch_s = []
+    for name in list(merged) + [None]:
+        _, t = _synced(torch, lambda: b._switch_adapter(name))
+        switch_s.append(t)
+    accepted, import_s = _synced(torch,
+                                 lambda: b.admit_with_state_batch(drained))
+    hot = b.hotpath_stats()
+    require(len(accepted) == 4 and hot["n_batched_imports"] == 1,
+            f"imported {len(accepted)} in {hot['n_batched_imports']} "
+            f"scatters")
+    b.run()
+    require([r.generated for r in reqs] == want,
+            "migrated streams differ from the uninterrupted run")
+    hot = b.hotpath_stats()
+    require(hot["n_prefill_tokens"] == 0, "B prefilled tokens")
+    require(hot["decode_compiles"] == 1,
+            f"B captured its decode step {hot['decode_compiles']} times")
+    owned = sum(t.numel() * t.element_size()
+                for path, t in S._leaves(b.batcher.params)
+                if path in b.batcher._owned)
+    print(f"    migration: 4 requests drained at token {RECOVERY_CUT} and "
+          f"imported in 1 scatter, streams equal to the uninterrupted run; "
+          f"snapshot bytes per request {snap_bytes} (positions {snap_pos}); "
+          f"export {export_s * 1e3:.3f} ms for 4 "
+          f"({export_s / 4 * 1e3:.3f} ms each), import {import_s * 1e3:.3f} "
+          f"ms for 4 ({import_s / 4 * 1e3:.3f} ms each); B prefilled 0 "
+          f"tokens, decode_compiles {int(hot['decode_compiles'])}")
+    if merged:
+        print(f"    adapter switches on B after its capture "
+              f"({len(switch_s)}, {owned / 1e6:.1f} MB of owned LoRA "
+              f"targets copied each): "
+              f"{[round(t * 1e3, 3) for t in switch_s]} ms")
+    print(f"    peak device memory with servers U, A and B: "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    out.update(snapshot_bytes=snap_bytes, export_ms=export_s * 1e3,
+               import_ms=import_s * 1e3,
+               switch_ms=[t * 1e3 for t in switch_s])
+    del a, b, merged, drained
+
+    # -- re-lay in bf16: printed, no limit --------------------------------
+    engine = PipeBoostEngine(cfg, params, n_devices=4, max_len=1024)
+    engine.load_round()
+    lost = engine.lost_state_layers([1])
+    has = [not x for x in lost]
+    out["bf16_relay_equal"] = _relay(torch, ops, S, cfg, params, prompts,
+                                     has, want, rebuild_kernels, strict=False)
+    del params
+    torch.cuda.empty_cache()
+
+    # -- partial crash and re-lay in float32 -------------------------------
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = T.init_params(cfg32, torch.Generator(device=dev).manual_seed(
+        7), device=dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         size=(4, 256))).to(dev)
+
+    def generate(crash):
+        eng = PipeBoostEngine(cfg32, params32, n_devices=4, max_len=1024)
+        eng.load_round()
+        tok = S.quantized_greedy(eng.prefill({"tokens": toks})).to(
+            torch.int32)
+        outs = [tok]
+        for i in range(1, RECOVERY_NEW):
+            if crash and i == RECOVERY_CUT:
+                lost_c = eng.lost_state_layers([1])
+                eng.crash([1])
+                before = ops.launch_counts()
+                stats, t = _synced(torch, eng.recover)
+                counts = _delta(before, ops.launch_counts())
+                out.update(recover_ms=t * 1e3,
+                           reconstruct=stats["reconstruct"])
+                print(f"    partial crash: device 1 of 4 crashed at decode "
+                      f"step {i}; lost_state_layers "
+                      f"{[j for j, x in enumerate(lost_c) if x]}; recover() "
+                      f"{t * 1e3:.3f} ms; reconstruct {stats['reconstruct']}")
+                _require_rebuild(counts, rebuild_kernels, "recover()")
+            tok = S.quantized_greedy(eng.decode(tok)).to(torch.int32)
+            outs.append(tok)
+        return torch.stack(outs, 1)
+
+    ref = generate(False)
+    got = generate(True)
+    require(torch.equal(ref, got),
+            "the crashed-and-recovered stream differs from the uncrashed one")
+    print(f"    partial crash: the continued stream (4 x {RECOVERY_NEW}) "
+          f"equals the uncrashed run's")
+    want32 = _uninterrupted(S, cfg32, params32, prompts)
+    _relay(torch, ops, S, cfg32, params32, prompts, has, want32,
+           rebuild_kernels, strict=True, out=out)
+    del params32
+    torch.cuda.empty_cache()
+
+    counts = ops.launch_counts()
+    print(f"    launches on the recovery path: {counts}")
+    for name, n in counts.items():
+        if name in kernels:
+            require(n > 0, f"{name} never launched on the recovery path")
+        else:
+            require(n == 0, f"{name} launched off the {arch} recovery path")
+    out["launches"] = counts
+    return out
+
+
+def _relay(torch, ops, S, cfg, params, prompts, has, want, rebuild_kernels,
+           strict, out=None):
+    """Serve to the cut, zero the state of the layers ``has`` marks lost,
+    re-lay the live batch and finish; the streams against ``want``."""
+    from repro_torch.core.kv_reconstruct import _kind_indices
+    srv = _server(S, cfg, params)
+    reqs = _requests(S, prompts)
+    _serve_to_cut(srv, reqs)
+    for gi, (kind, ki, ai) in enumerate(_kind_indices(cfg)):
+        if not has[gi]:
+            for t in srv.batcher.cache[kind].values():
+                t[ai if kind == "attn" else ki].zero_()
+    before = ops.launch_counts()
+    stats, t = _synced(torch, lambda: srv.relay_inflight(has))
+    counts = _delta(before, ops.launch_counts())
+    srv.run()
+    equal = sum(r.generated == w for r, w in zip(reqs, want))
+    hot = srv.hotpath_stats()
+    print(f"    re-lay ({cfg.dtype}): layers "
+          f"{[j for j, h in enumerate(has) if not h]} lost under 4 live "
+          f"requests; relay_inflight {t * 1e3:.3f} ms, "
+          f"{int(hot['n_relay_scatters'])} scatter; stats {stats}; "
+          f"{equal} of 4 streams equal to the uninterrupted run's; "
+          f"decode_compiles {int(hot['decode_compiles'])}")
+    require(hot["n_relay_scatters"] == 1 and hot["decode_compiles"] == 1,
+            f"relay: {hot}")
+    if strict:
+        require(equal == 4, "re-laid streams differ from the uninterrupted "
+                            "run")
+        _require_rebuild(counts, rebuild_kernels, "relay_inflight")
+        out.update(relay_ms=t * 1e3, relay_stats=stats)
+    return equal
 
 
 def main() -> int:
@@ -881,6 +1151,20 @@ def main() -> int:
             torch, ops, "recurrentgemma-2b", 0,
             ("decode_attention", "flash_attention", "rglru_scan")),
     }
+
+    print("== phase 6: recovery")
+    recovered = {
+        "pipeboost-opt-1.3b": recovery(
+            torch, ops, dev, "pipeboost-opt-1.3b", 2,
+            ("decode_attention", "flash_attention", "lora_merge"),
+            ("flash_attention",)),
+        "mamba2-780m": recovery(torch, ops, dev, "mamba2-780m", 0,
+                                ("ssd_scan",), ("ssd_scan",)),
+        "recurrentgemma-2b": recovery(
+            torch, ops, dev, "recurrentgemma-2b", 0,
+            ("decode_attention", "flash_attention", "rglru_scan"),
+            ("flash_attention", "rglru_scan")),
+    }
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     kernels = []
@@ -890,10 +1174,15 @@ def main() -> int:
         # launches: every serve run of phase 5 whose path runs the kernel
         by_arch = {arch: c[name] for arch, c in serve_counts.items()
                    if c[name]}
+        rec_by_arch = {arch: r["launches"][name]
+                       for arch, r in recovered.items()
+                       if r["launches"][name]}
         entry = {"name": name, "route": "cuda", "source": mod.SOURCE,
                  "replaces": mod.REPLACES,
                  "launches": sum(by_arch.values()),
                  "launches_by_arch": by_arch,
+                 "recovery_launches": sum(rec_by_arch.values()),
+                 "recovery_launches_by_arch": rec_by_arch,
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "kernel_ms": r["ms"], "host_paced_ms": r["paced_ms"],
                  "plain_ms": r["plain_ms"],

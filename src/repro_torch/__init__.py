@@ -2,7 +2,9 @@
 
 The port of the JAX package ``repro``: the same single-server request path
 (pipelined cold start, bucketed prefill, zero-copy continuous-batched
-decode, merged-LoRA adapter epochs) written in PyTorch, with the Pallas TPU
+decode captured once as a CUDA graph, merged-LoRA adapter epochs, and crash
+recovery: KV snapshots, migration and in-place state reconstruction)
+written in PyTorch, with the Pallas TPU
 kernels replaced by hand-written CUDA C++ kernels for ``sm_90a``
 (``repro_torch.kernels``).  Every entry point runs on the card unless the
 caller passes ``device="cpu"``; on the CPU each kernel wrapper runs its

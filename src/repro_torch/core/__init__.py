@@ -1,1 +1,2 @@
-"""Cold-start engine, load planner and adapter scheduling."""
+"""Cold-start engine, load planner, adapter scheduling and crash
+recovery (KV/state reconstruction)."""

@@ -84,17 +84,23 @@ def rglru_scan(log_a, bx, h0=None):
     return fn(log_a, bx, h0)
 
 
+_COUNTED = {"decode_attention": _dec, "flash_attention": _fa,
+            "lora_merge": _lm, "ssd_scan": _ssd, "rglru_scan": _rg}
+
+
 def reset_launch_counts() -> None:
-    _dec.launches = 0
-    _fa.launches = 0
-    _lm.launches = 0
-    _ssd.launches = 0
-    _rg.launches = 0
+    for mod in _COUNTED.values():
+        mod.launches = 0
 
 
 def launch_counts():
-    return {"decode_attention": _dec.launches,
-            "flash_attention": _fa.launches,
-            "lora_merge": _lm.launches,
-            "ssd_scan": _ssd.launches,
-            "rglru_scan": _rg.launches}
+    return {name: mod.launches for name, mod in _COUNTED.items()}
+
+
+def add_launch_counts(delta) -> None:
+    """Add ``delta`` ({kernel: n}) to the counts.  A captured CUDA graph
+    counts its kernels' launches once per replay this way: the wrappers'
+    counters run only while the graph is captured, when nothing launches
+    (the capture takes its own counts back out)."""
+    for name, n in delta.items():
+        _COUNTED[name].launches += n

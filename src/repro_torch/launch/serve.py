@@ -28,7 +28,12 @@ attention-free model's adapters are empty and merge as the identity).
 It prints ``cold_start_stats()``, the wall time to first token of each
 request, decode throughput and the generated tokens.
 
-Not ported yet: ``--cluster`` and ``--crash-at`` (ROADMAP.md).
+``--crash-at N`` then injects the reference's single-server crash: the
+engine prefills one more batch, device 1 crashes before decode step N,
+``recover()`` rebuilds the lost layers' state on the survivors (printing
+the reconstruct stats) and decoding continues.
+
+Not ported yet: ``--cluster`` (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ import torch
 
 from repro_torch.configs.base import ARCH_IDS, ArchConfig, get_arch
 from repro_torch.core.adapter_scheduler import EpochSchedulerPolicy
-from repro_torch.core.engine import PipeBoostEngine
+from repro_torch.core.engine import PipeBoostEngine, generate
 from repro_torch.lora.adapters import init_lora, merge_lora, randomize_lora
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import ServeRequest, ServingEngine
@@ -61,6 +66,7 @@ class ServeResult:
     wall_s: float
     decode_tokens_per_s: float
     peak_memory_bytes: Optional[int]
+    crash: Optional[Dict[str, object]] = None   # --crash-at's record
 
 
 def serving_config(arch: str, device: str, n_devices: int) -> ArchConfig:
@@ -143,14 +149,39 @@ def run(args) -> ServeResult:
     eng.stop_fill()
     while eng.load_round():     # finish any tail the thread didn't reach
         pass
+    cold = eng.cold_start_stats()
     hot = srv.hotpath_stats()
+    crash = None
+    if args.crash_at >= 0:
+        crash = crash_and_recover(eng, cfg, rng, args, device)
     decode_tokens = sum(len(r.generated) - 1 for r in reqs)
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else None)
-    return ServeResult(cfg, reqs, ttft, eng.cold_start_stats(), hot,
+    return ServeResult(cfg, reqs, ttft, cold, hot,
                        srv.n_adapter_switches, wall,
                        decode_tokens / hot["decode_time_s"]
-                       if hot["decode_time_s"] > 0 else 0.0, peak)
+                       if hot["decode_time_s"] > 0 else 0.0, peak, crash)
+
+
+def crash_and_recover(eng: PipeBoostEngine, cfg: ArchConfig, rng, args,
+                      device: torch.device) -> Dict[str, object]:
+    """The reference's single-server crash injection: prefill one batch on
+    the engine, crash device 1 before decode step ``--crash-at``, recover
+    on the survivors and decode on to ``--new-tokens`` tokens."""
+    print(f"injecting crash on device 1 of the PipeBoost engine at decode "
+          f"step {args.crash_at}...")
+    lost = eng.lost_state_layers([1])
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(1, 8))).to(device)}
+    tokens = generate(eng, batch, args.new_tokens, crash_at=args.crash_at,
+                      crash_devices=[1])
+    stats = [p for e, p in eng.events if e == "recover"][-1]
+    print(f"  layers whose state device 1 held: "
+          f"{[i for i, x in enumerate(lost) if x]}")
+    print(f"  recovered: {stats.get('reconstruct')}")
+    print(f"  decode continued through the crash: "
+          f"{tokens[0].tolist()}")
+    return {"lost_layers": lost, "recover": stats, "tokens": tokens}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -168,6 +199,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--adapters", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--crash-at", type=int, default=-1,
+                    help="after serving, crash device 1 of the engine at "
+                         "this decode step of a new batch and recover")
     return ap
 
 

@@ -22,8 +22,10 @@ Entry points:
 slice and the current token's K/V row joins the softmax in the decode
 kernel; after the layer loop one in-place write puts every layer's row at
 ``pos % C``.  SSM and recurrent layers write their new conv window and
-state into their cache slices in place.  The cache passed in is updated in
-place — the analogue of the reference's donated cache — and returned.
+state into their cache slices in place, and a ``(B,)`` int32 ``pos`` is
+advanced in place.  The cache passed in is updated in place — the analogue
+of the reference's donated cache — and returned, so a CUDA graph captured
+over the step goes on reading and writing the same storage.
 
 The MoE layer kind, M-RoPE and the audio family are not ported yet and
 raise ``NotImplementedError``.
@@ -202,29 +204,45 @@ def _apply_mlp(cfg, p, x):
     return h @ p["w_down"]
 
 
+def project_q(cfg, p, h):
+    """The query projection alone (B, S, Hq, hd), before rope: what the
+    Q-only recompute of a layer whose K/V survived needs."""
+    B, S, _ = h.shape
+    q = h @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+    return q
+
+
 def _project_qkv(cfg, p, h):
     B, S, _ = h.shape
     hd = cfg.resolved_head_dim
-    q = h @ p["wq"]
+    q = project_q(cfg, p, h)
     k = h @ p["wk"]
     v = h @ p["wv"]
     if cfg.qkv_bias:
-        q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = q.reshape(B, S, cfg.n_heads, hd)
     k = k.reshape(B, S, cfg.n_kv_heads, hd)
     v = v.reshape(B, S, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
-        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_norm(p["k_norm"], k, cfg.norm_eps)
     return q, k, v
 
 
-def attn_layer_fwd(cfg, p, x, positions):
+def attn_layer_fwd(cfg, p, x, positions, *, kv_write=None):
     """Full-sequence attention layer (prefill attention runs the flash
     kernel).  Returns (x, (k, v)) with the roped k/v (B, S, Hkv, hd) that
-    ``forward`` places into the cache."""
+    ``forward`` places into the cache.
+
+    ``kv_write`` (k_dst, v_dst): this layer's cache slices (B, cap, Hkv,
+    hd), written in place with the roped k/v as a prefill lays them out
+    (the ring's tail when the sequence is longer than the slice, zeros past
+    a shorter one) — the reference's ``kv_write=cap``, which the full-layer
+    recompute of ``core.kv_reconstruct`` uses."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     q, k, v = _project_qkv(cfg, p, h)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -233,17 +251,23 @@ def attn_layer_fwd(cfg, p, x, positions):
                            window=cfg.attn_window)
     x = x + o.reshape(*x.shape[:2], -1) @ p["wo"]
     h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+    if kv_write is not None:
+        for dst, t in zip(kv_write, (k, v)):
+            _place_kv(dst, t, dst.shape[1], clear=True)
     return x + _apply_mlp(cfg, p["mlp"], h2), (k, v)
 
 
-def _place_kv(dst, kv, cap: int) -> None:
-    """Write a prompt's k or v (B, S, Hkv, hd) into a zeroed cache slice
-    (B, cap, Hkv, hd).  A ring buffer smaller than the prompt keeps the
-    tail, rolled so that slot j holds the position p with p % cap == j
-    (decode writes at pos % cap, so the oldest entry is overwritten)."""
+def _place_kv(dst, kv, cap: int, *, clear: bool = False) -> None:
+    """Write a prompt's k or v (B, S, Hkv, hd) into a cache slice (B, cap,
+    Hkv, hd), zeroed already unless ``clear`` asks to zero the slots past
+    the prompt.  A ring buffer smaller than the prompt keeps the tail,
+    rolled so that slot j holds the position p with p % cap == j (decode
+    writes at pos % cap, so the oldest entry is overwritten)."""
     S = kv.shape[1]
     if cap >= S:
         dst[:, :S] = kv
+        if clear:
+            dst[:, S:].zero_()
     else:
         shift = (S - cap) % cap
         dst.copy_(torch.roll(kv[:, S - cap:], shift, dims=1))
@@ -308,9 +332,16 @@ def embed_tokens(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def unembed(cfg, params, x) -> torch.Tensor:
-    """float32 logits over the padded vocab; the product runs in float32
-    from upcast operands, as the reference's preferred_element_type."""
+    """float32 logits over the padded vocab, as the reference's
+    ``preferred_element_type`` gives them.  On the card a bf16 product
+    writes float32 directly (float32 accumulation, no float32 copy of the
+    (V, D) embedding); on the CPU, which has no such product, the operands
+    are upcast."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if x.is_cuda and x.dtype != torch.float32:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), head,
+                     out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
     return x.float() @ head.float()
 
 
@@ -396,7 +427,9 @@ def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
     """One autoregressive step; updates ``cache`` in place.
 
     batch: {"tokens": (B,) int}.
-    Returns (logits (B, V) f32, cache) with ``pos`` advanced by one.
+    Returns (logits (B, V) f32, cache) with ``pos`` advanced by one: in
+    place when it is a ``(B,)`` int32 tensor (the serving batcher's, and
+    every prefill's), else replaced by one.
     """
     check_supported(cfg)
     toks = batch["tokens"].reshape(-1)
@@ -437,4 +470,8 @@ def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
         vc[:, bidx, slot] = torch.stack(v_rows)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(cfg, params, x)[:, 0, :]
-    return logits, {**cache, "pos": pos + 1}
+    if cache["pos"] is pos:
+        pos.add_(1)
+    else:
+        cache["pos"] = pos + 1
+    return logits, cache

@@ -1,1 +1,2 @@
-"""Request serving: continuous batching and adapter epochs."""
+"""Request serving: continuous batching, adapter epochs and crash
+migration (KV snapshots)."""

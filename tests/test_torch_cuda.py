@@ -485,3 +485,190 @@ def test_model_kernels_match_plain(card, arch):
         plain = run()
     assert ops.launch_counts() == counts
     assert (with_kernels - plain).abs().max().item() <= 5e-2
+
+
+# ---------------------------------------------------------------------------
+# the captured decode step and the recovery path on the card
+# ---------------------------------------------------------------------------
+
+def _small(arch, dtype="bfloat16"):
+    """Kernel-sized heads at reduced depth (the model test's configs)."""
+    if arch == "qwen3-1.7b":
+        return get_arch(arch).reduced(n_layers=4, d_model=256, n_heads=4,
+                                      n_kv_heads=2, head_dim=64, dtype=dtype)
+    if arch == "mamba2-780m":
+        return get_arch(arch).reduced(n_layers=4, d_model=256,
+                                      ssm_head_dim=64, ssm_state=128,
+                                      dtype=dtype)
+    return get_arch(arch).reduced(n_layers=6, d_model=256, n_heads=10,
+                                  n_kv_heads=1, head_dim=256, lru_width=256,
+                                  attn_window=32, dtype=dtype)
+
+
+def _serve(card, cfg, params, prompts, *, eager=False, adapter_params=None,
+           n_new=12):
+    from repro_torch.serving import engine as S
+    srv = S.ServingEngine(cfg, params, n_slots=4, max_len=128,
+                          adapter_params=adapter_params)
+    srv.batcher.sampler = S.quantized_greedy
+    if eager:     # the step uncaptured: what the graph must reproduce
+        srv.batcher._decode = srv.batcher._decode_sample
+    reqs = [S.ServeRequest(i, p, max_new_tokens=n_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        srv.submit(r)
+    return srv, reqs
+
+
+def _prompts(cfg, n=4, seed=0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=int(L))
+            for L in rng.integers(20, 60, size=n)]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-780m",
+                                  "recurrentgemma-2b"])
+def test_captured_decode_matches_eager(card, arch):
+    """Every step after the first replays one captured graph; the streams
+    and the final cache equal the eager step's (the ring of 32 wraps under
+    recurrentgemma's longer prompts)."""
+    cfg = _small(arch)
+    params = T.init_params(cfg, _gen(card, 3), device=card)
+    prompts = _prompts(cfg)
+    cap, creqs = _serve(card, cfg, params, prompts)
+    cap.run()
+    eag, ereqs = _serve(card, cfg, params, prompts, eager=True)
+    eag.run()
+    assert [r.generated for r in creqs] == [r.generated for r in ereqs]
+    assert cap.batcher.compile_stats()["decode_compiles"] == 1
+    assert eag.batcher.compile_stats()["decode_compiles"] == 0
+    for kind in ("attn", "ssm", "rec"):
+        for leaf, t in cap.batcher.cache.get(kind, {}).items():
+            assert torch.equal(t, eag.batcher.cache[kind][leaf]), (kind, leaf)
+
+
+def test_replays_count_their_launches(card):
+    """A replay adds the captured kernels' launches; the capture itself
+    counts none."""
+    cfg = _small("qwen3-1.7b")
+    params = T.init_params(cfg, _gen(card, 3), device=card)
+    srv, reqs = _serve(card, cfg, params, _prompts(cfg, n=2))
+    srv.step()                          # admission + eager step + capture
+    ops.reset_launch_counts()
+    srv.step()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == cfg.n_layers
+    srv.step()
+    assert ops.launch_counts()["decode_attention"] == 2 * cfg.n_layers
+    assert srv.batcher.compile_stats()["decode_compiles"] == 1
+
+
+def test_decode_compiles_stays_one_through_recovery(card):
+    """Two adapter switches, an import, a batched import, a reconstruct and
+    a re-lay after the capture: still one graph, and the streams equal an
+    eager run's (in float32: a rebuild recomputes the lost layers in
+    another sum order than the decode steps that wrote them)."""
+    import numpy as np
+    from repro_torch.core.kv_reconstruct import _kind_indices
+    from repro_torch.lora.adapters import init_lora, merge_lora, \
+        randomize_lora
+    cfg = _small("qwen3-1.7b", dtype="float32")
+    params = T.init_params(cfg, _gen(card, 3), device=card)
+    g = _gen(card, 9)
+    merged = {f"l{i}": merge_lora(params, randomize_lora(
+        g, init_lora(g, cfg, rank=16, name=f"l{i}", device=card)))
+        for i in range(2)}
+    prompts = _prompts(cfg, n=3, seed=1)
+    ref, rreqs = _serve(card, cfg, params, prompts, eager=True)
+    ref.run()
+    srv, _ = _serve(card, cfg, params, [], adapter_params=merged)
+    srv.batcher.warm_decode()
+    assert srv.batcher.compile_stats()["decode_compiles"] == 1
+    srv._switch_adapter("l0")
+    srv._switch_adapter("l1")
+    srv._switch_adapter(None)
+    a, areqs = _serve(card, cfg, params, prompts)
+    for _ in range(4):
+        a.step()
+    drained = a.drain_inflight()
+    assert srv.admit_with_state(drained[0])
+    assert len(srv.admit_with_state_batch(drained[1:])) == 2
+    srv.step()
+    lost = [False, True, True, False]
+    for gi, (kind, ki, ai) in enumerate(_kind_indices(cfg)):
+        if lost[gi]:
+            for t in srv.batcher.cache[kind].values():
+                t[ai].zero_()
+    has = [not x for x in lost]
+    assert srv.reconstruct_inflight(has)["reconstructed_reqs"] == 3
+    srv.step()
+    assert srv.relay_inflight(has)["relayed_reqs"] == 3
+    srv.run()
+    assert [r.generated for r in areqs] == [r.generated for r in rreqs]
+    assert srv.batcher.compile_stats()["decode_compiles"] == 1
+    assert srv.hotpath_stats()["n_prefill_tokens"] == 0
+    assert np.all([r.done for r in areqs])
+
+
+def test_windowed_q_only_on_flash_matches_ring(card):
+    """The windowed Q-only recompute runs the flash kernel with the window
+    over the cache's first S rows; its plain version is the ring form."""
+    from repro_torch.core import kv_reconstruct as R
+    cfg = _small("recurrentgemma-2b", dtype="float32")
+    g = _gen(card, 11)
+    S, cap, hd = 24, 32, cfg.resolved_head_dim
+    q = torch.randn((2, S, cfg.n_heads, hd), generator=g, device=card)
+    kc = torch.randn((2, cap, cfg.n_kv_heads, hd), generator=g, device=card)
+    vc = torch.randn(kc.shape, generator=g, device=card)
+    ring = R._windowed_ring_attention(cfg, q, kc, vc, S)
+    ops.reset_launch_counts()
+    flash = ops.flash_attention(q, kc[:, :S], vc[:, :S], causal=True,
+                                window=cfg.attn_window)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert (flash - ring).abs().max().item() <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-780m",
+                                  "recurrentgemma-2b"])
+def test_rebuild_on_the_card_matches_fresh_prefill(card, arch):
+    """``reconstruct_cache`` through the kernels (flash on the surviving
+    cache's strides, the scans) against a fresh prefill, in float32."""
+    from repro_torch.core import kv_reconstruct as R
+    cfg = _small(arch, dtype="float32")
+    params = T.init_params(cfg, _gen(card, 3), device=card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 28), generator=_gen(card, 4),
+                         device=card)
+    _, fresh = T.forward(cfg, params, {"tokens": toks}, mode="prefill",
+                         max_len=64)
+    damaged = {k: ({l: t.clone() for l, t in v.items()}
+                   if isinstance(v, dict) else v.clone())
+               for k, v in fresh.items()}
+    has = [True, False, True, False] + [True] * (cfg.n_layers - 4)
+    for gi, (kind, ki, ai) in enumerate(R._kind_indices(cfg)):
+        if not has[gi]:
+            for t in damaged[kind].values():
+                t[ai if kind == "attn" else ki].zero_()
+    ops.reset_launch_counts()
+    R.reconstruct_cache(cfg, params, {"tokens": toks}, damaged, has,
+                        max_len=64)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] + counts["ssd_scan"] \
+        + counts["rglru_scan"] > 0
+    for kind in ("attn", "ssm", "rec"):
+        for leaf, t in fresh.get(kind, {}).items():
+            assert (damaged[kind][leaf] - t).abs().max().item() <= 2e-3
+
+
+def test_unembed_bf16_product_writes_float32(card):
+    """The card's logit product: bf16 operands, float32 output, against the
+    upcast product (sum order only)."""
+    cfg = _small("qwen3-1.7b")
+    params = T.init_params(cfg, _gen(card, 3), device=card)
+    x = torch.randn((3, 1, cfg.d_model), generator=_gen(card, 5),
+                    device=card).to(torch.bfloat16)
+    got = T.unembed(cfg, params, x)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    want = x.float() @ head.float()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
