@@ -100,6 +100,34 @@ Phases (any failure exits non-zero and prints no result line):
    such a change far past the quantized sampler's bins (phase 4's bf16
    greedy agreements), so the exact-stream checks of a rebuild run in
    float32.
+7. The cluster, pipeboost-opt-1.3b at full width and depth, servers of 2
+   logical devices, 4 slots and max_len 1024, prompts of 64-512 tokens and
+   32 new tokens (launch counts reset just before each part and read just
+   after):
+   - 7a, exactness (float32, logical clock): a ``ClusterRouter`` with 2
+     rank-16 adapters merged by the LoRA kernel, a prefix cache of 4
+     entries per server and a ``StateTier`` replays a
+     ``repeated_prefix_trace`` (448 shared tokens, 16 own) merged with a
+     ``burst_wave_trace``; server 1 crashes after 3 completions, its
+     in-flight requests migrate, and it rejoins 20 ticks later.  Every
+     request must complete with the stream the same request gets served
+     alone by one cold ``ServingEngine`` without a cache; prefix hits
+     must occur; every server that decoded captured its step once;
+     decode, flash and the LoRA merge must launch;
+   - 7b, the normal entry point (bf16, wall clock): ``python -m
+     repro_torch.launch.serve --cluster --wall-clock`` on a burst wave of
+     16 base-model requests with ``--crash-at 3``; every request must
+     complete and some must be re-routed (with adapters, an epoch barrier
+     can leave the crashed server holding only queued requests on the
+     wall clock, which re-route without counting).  TTFT and TBT
+     percentiles, throughput, servers and scale-ups, GPU-seconds and
+     device memory are printed;
+   - 7c, a prefix hit against a cold prefill (bf16): one batcher, a
+     prompt of 448 shared and 16 own tokens, then 448 and 64; for each,
+     the cold admission's TTFT, the hit's import, suffix walk and total,
+     and the deposit's export time and bytes are printed (no limit; an
+     entry holds max_len rows, so a hit can be slower than a cold
+     prefill), with the hit stream's agreement with a cold one.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1060,6 +1088,267 @@ def _relay(torch, ops, S, cfg, params, prompts, has, want, rebuild_kernels,
     return equal
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the cluster
+# ---------------------------------------------------------------------------
+
+CLUSTER_ARCH = "pipeboost-opt-1.3b"
+CLUSTER_NEW = 32             # tokens a request generates
+PREFIX_SHARED = 448          # shared prompt-prefix tokens (7a, 7c)
+
+
+def cluster_trace(C, seed=21):
+    """7a's trace: 8 prompts of 448 shared and 16 own tokens, 0.413 s
+    apart (off the 0.05 s tick grid), merged with a 6-request burst wave of
+    64-512-token prompts, half of them on the two adapters."""
+    import numpy as np
+    shared = C.repeated_prefix_trace(
+        8, prefix_len=PREFIX_SHARED, suffix_len=16, gap_s=0.413, seed=seed,
+        max_new_tokens=CLUSTER_NEW)
+    wave = C.burst_wave_trace(6, base_rate=2.0, wave_rate=8.0, wave_at=0.5,
+                              wave_len=1.0, seed=seed + 1,
+                              max_new_tokens=CLUSTER_NEW,
+                              adapters=("lora0", "lora1"))
+    lens = np.random.default_rng(seed).integers(64, 513, size=len(wave))
+    wave = [dataclasses.replace(a, prompt_len=int(n))
+            for a, n in zip(wave, lens)]
+    return C.merge_traces(shared, wave)
+
+
+def entry_bytes(cfg, max_len=1024, tokens=PREFIX_SHARED + 16):
+    """Bytes of one prefix-cache entry: K and V rows of every layer at
+    max_len positions, plus its int64 tokens."""
+    import torch
+    item = torch.tensor([], dtype=getattr(torch, cfg.dtype)).element_size()
+    return (2 * cfg.n_layers * max_len * cfg.n_kv_heads
+            * cfg.resolved_head_dim * item + 8 * tokens)
+
+
+def cluster_exact(torch, ops, dev, cfg):
+    """7a: the router with a prefix cache, a state tier and a crash with
+    migration and rejoin; every stream against a solo cold run."""
+    import repro_torch.cluster as C
+    from repro_torch.launch.serve import merged_adapters
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as S
+    gen = torch.Generator(device=dev).manual_seed(11)
+    params = T.init_params(cfg, gen, device=dev)
+    trace = cluster_trace(C)
+    per_entry = entry_bytes(cfg)
+    ccfg = C.ClusterConfig(n_devices=2, n_slots=4, max_len=1024,
+                           prefix_cache_bytes=4 * per_entry)
+    scaler = C.Autoscaler(C.AutoscalerConfig(target_queue_per_server=4,
+                                             max_servers=3, ttft_slo_s=1.0))
+    ops.reset_launch_counts()
+    ads = merged_adapters(cfg, params, 2, gen)
+    router = C.ClusterRouter(cfg, params, n_servers=2, ccfg=ccfg,
+                             autoscaler=scaler, adapter_params=ads,
+                             state_tier=C.StateTier())
+    done, wall = _synced(torch, lambda: router.run(
+        trace, crash_after_completions=3, crash_server_id=1,
+        rejoin_after_ticks=20))
+    counts = ops.launch_counts()
+    s = router.metrics.summary()
+    kinds = [k for _, k, _ in router.metrics.events]
+    hot = [srv.srv.hotpath_stats() for srv in router.servers]
+    print(f"  7a: {len(done)}/{len(trace)} requests on {len(router.servers)} "
+          f"servers in {wall:.1f} s wall ({cfg.dtype}); prefix hits "
+          f"{int(s['prefix_hits'])} ({int(s['prefix_hit_tokens'])} tokens, "
+          f"{int(s['prefix_evictions'])} evictions, {per_entry} B an "
+          f"entry); rerouted {int(s['n_rerouted'])}, migrated "
+          f"{int(s['recovery_mode_migrate'])}, re-prefilled "
+          f"{int(s['recovery_mode_reprefill'])}; decode_compiles per server "
+          f"{[int(h['decode_compiles']) for h in hot]}; prefill tokens "
+          f"{int(s['hotpath_n_prefill_tokens'])}")
+    events = [(round(t, 2), k, d) for t, k, d in router.metrics.events
+              if k not in ("spawn", "ready")]
+    live = router.servers[0].srv.batcher
+    owned = sum(t.numel() * t.element_size()
+                for path, t in S._leaves(live.params)
+                if path in live._owned)
+    cache = sum(t.numel() * t.element_size()
+                for t in live.cache["attn"].values())
+    print(f"    events: {events}; a server holds its cache "
+          f"{cache / 1e6:.1f} MB and its owned LoRA targets "
+          f"{owned / 1e6:.1f} MB ({cfg.dtype})")
+    print(f"    launches: {counts}")
+    require(len(done) == len(trace) and all(
+        r.done and len(r.generated) == CLUSTER_NEW for r in done),
+        "not every request completed")
+    require(s["prefix_hits"] > 0, "no prefix hit")
+    require("crash" in kinds and "rejoin" in kinds, f"events {kinds}")
+    require(s["n_rerouted"] > 0, "the crash re-routed nothing")
+    require(all(h["decode_compiles"] == (1 if h["n_decode_steps"] else 0)
+                for h in hot), f"captures {hot}")
+    for name in ("decode_attention", "flash_attention", "lora_merge"):
+        require(counts[name] > 0, f"7a never launched {name}")
+    del router
+    torch.cuda.empty_cache()
+    solo = S.ServingEngine(cfg, params, n_slots=4, max_len=1024,
+                           adapter_params=ads)
+    solo.batcher.sampler = S.quantized_greedy
+    equal = 0
+    for r in sorted(done, key=lambda r: r.rid):
+        q = S.ServeRequest(r.rid, r.tokens, CLUSTER_NEW, adapter=r.adapter)
+        solo.submit(q)
+        solo.run()
+        equal += q.generated == r.generated
+    print(f"    {equal} of {len(done)} streams equal to the request served "
+          f"alone by a cold ServingEngine without a cache")
+    require(equal == len(done), "cluster streams differ from solo runs")
+    require(solo.batcher.compile_stats()["decode_compiles"] == 1,
+            "solo engine captured more than once")
+    del solo, ads, params
+    torch.cuda.empty_cache()
+    return {"counts": counts, "summary": s}
+
+
+def cluster_cli(torch, ops, dev):
+    """7b: the launcher's --cluster --wall-clock at full width (bf16)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.serving import engine as S
+    argv = ["--cluster", "--wall-clock", "--arch", CLUSTER_ARCH,
+            "--devices", "2", "--servers", "2", "--requests", "16",
+            "--crash-at", "3", "--adapters", "0",
+            "--new-tokens", str(CLUSTER_NEW), "--prompt-len", "64-512",
+            "--max-len", "1024", "--slots", "4", "--seed", "0"]
+    print(f"  7b: python -m repro_torch.launch.serve {' '.join(argv)}")
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    router = res.router
+    s = router.metrics.summary()
+    full = get_arch(CLUSTER_ARCH)
+    require(router.cfg.n_layers == full.n_layers
+            and router.cfg.d_model == full.d_model, "not full width")
+    require(s["n_completed"] == res.n_requests == 16,
+            "not every request completed")
+    require(s["n_rerouted"] > 0, "the crash re-routed nothing")
+    hot = [srv.srv.hotpath_stats() for srv in router.servers]
+    require(all(h["decode_compiles"] == (1 if h["n_decode_steps"] else 0)
+                for h in hot), f"captures {hot}")
+    for name in ("decode_attention", "flash_attention"):
+        require(counts[name] > 0, f"7b never launched {name}")
+    live = next(x.srv.batcher for x in router.servers
+                if x.state != "retired")
+    owned = sum(t.numel() * t.element_size()
+                for path, t in S._leaves(live.params)
+                if path in live._owned)
+    cache = sum(t.numel() * t.element_size()
+                for t in live.cache["attn"].values())
+    out = {k: s[k] for k in ("ttft_p50", "ttft_p99", "ttft_mean", "tbt_p50",
+                             "tbt_p99", "throughput_tok_s", "servers_max",
+                             "gpu_seconds", "n_rerouted")}
+    out.update(scale_ups=res.scaler.n_scale_ups, wall_s=res.wall_s,
+               memory_before_spawn=res.memory_before_spawn,
+               memory_after_run=res.memory_after_run,
+               peak_memory=res.peak_memory_bytes, per_server_cache=cache,
+               per_server_owned=owned)
+    print(f"    TTFT p50 {s['ttft_p50']:.4f} s, p99 {s['ttft_p99']:.4f} s, "
+          f"mean {s['ttft_mean']:.4f} s; TBT p50 {s['tbt_p50']:.4f} s, p99 "
+          f"{s['tbt_p99']:.4f} s; throughput {s['throughput_tok_s']:.1f} "
+          f"tokens/s; servers_max {int(s['servers_max'])}, "
+          f"{res.scaler.n_scale_ups} scale-ups; gpu_seconds "
+          f"{s['gpu_seconds']:.3f}; rerouted {int(s['n_rerouted'])}")
+    print(f"    device memory: {res.memory_before_spawn / 2**30:.3f} GiB "
+          f"before the first spawn, {res.memory_after_run / 2**30:.3f} GiB "
+          f"after the run, peak {res.peak_memory_bytes / 2**30:.3f} GiB; a "
+          f"server's cache {cache / 1e6:.1f} MB and owned LoRA targets "
+          f"{owned / 1e6:.1f} MB")
+    print(f"    launches: {counts}")
+    params = router.params
+    del res, router
+    torch.cuda.empty_cache()
+    return {"counts": counts, "numbers": out, "params": params}
+
+
+def prefix_vs_cold(torch, ops, dev, params):
+    """7c: a prefix hit's import and suffix walk against a cold prefill of
+    the same length, and the deposit's export (bf16)."""
+    import numpy as np
+    from repro_torch.configs.base import get_arch
+    from repro_torch.serving import engine as S
+    from repro_torch.serving.prefix_cache import PrefixCache
+    cfg = get_arch(CLUSTER_ARCH)
+    b = S.ContinuousBatcher(cfg, params, 4, 1024, sampler=S.quantized_greedy)
+    rng = np.random.default_rng(31)
+    shared = rng.integers(0, cfg.vocab_size, size=PREFIX_SHARED)
+    timers = {"upload": [], "scatter": [], "deposit_prefixes": []}
+
+    def timed(name):
+        fn = getattr(b, "_" + name)
+
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            timers[name].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def serve(p, rid):
+        r = S.ServeRequest(rid, p, max_new_tokens=CLUSTER_NEW)
+        _, t = _synced(torch, lambda: b.admit_batch([r]))
+        while b.n_active:
+            b.step()
+        return r, t
+
+    ops.reset_launch_counts()
+    serve(rng.integers(0, cfg.vocab_size, size=200), 0)  # warm-up, capture
+    b._upload, b._scatter = timed("upload"), timed("scatter")
+    b._deposit_prefixes = timed("deposit_prefixes")
+    out = {}
+    for own in (16, 64):
+        donor = np.concatenate([shared, rng.integers(0, cfg.vocab_size,
+                                                     size=own)])
+        hit = np.concatenate([shared, rng.integers(0, cfg.vocab_size,
+                                                   size=own)])
+        b.attach_prefix_cache(None)
+        cold_hit, _ = serve(hit, 1)                  # the hit prompt, cold
+        _, cold_s = serve(donor, 2)                  # cold TTFT (no deposit)
+        pc = PrefixCache(1 << 34)
+        b.attach_prefix_cache(pc)
+        timers["deposit_prefixes"].clear()
+        serve(donor, 3)                              # a miss, then deposits
+        [(_, entry)] = pc.export_entries()
+        export_s = timers["deposit_prefixes"][-1]
+        for k in ("upload", "scatter"):
+            timers[k].clear()
+        r = S.ServeRequest(4, hit, max_new_tokens=CLUSTER_NEW)
+        k0 = b.prefix_hit_tokens
+        _, total_s = _synced(torch, lambda: b.admit_batch([r]))
+        import_s = timers["upload"][-1] + timers["scatter"][-1]
+        k = b.prefix_hit_tokens - k0
+        require(k >= PREFIX_SHARED and len(r.generated) == 1,
+                "the hit did not land")
+        while b.n_active:
+            b.step()
+        agree = sum(x == y for x, y in zip(r.generated, cold_hit.generated))
+        print(f"  7c: {PREFIX_SHARED} shared + {own} own tokens: cold "
+              f"admission (prefill + first token) {cold_s * 1e3:.3f} ms; hit "
+              f"{total_s * 1e3:.3f} ms = import {import_s * 1e3:.3f} ms + "
+              f"suffix walk of {len(hit) - k} steps and first-token read "
+              f"{(total_s - import_s) * 1e3:.3f} "
+              f"ms; deposit export {export_s * 1e3:.3f} ms for "
+              f"{entry.nbytes} B; hit stream agrees with the cold one on "
+              f"{agree} of {CLUSTER_NEW} tokens (bf16, no limit)")
+        out[own] = {"cold_ms": cold_s * 1e3, "hit_ms": total_s * 1e3,
+                    "walk_steps": len(hit) - k,
+                    "import_ms": import_s * 1e3,
+                    "walk_ms": (total_s - import_s) * 1e3,
+                    "export_ms": export_s * 1e3, "entry_bytes": entry.nbytes,
+                    "agree": agree}
+    require(b.compile_stats()["decode_compiles"] == 1,
+            f"7c batcher captured {b.compile_stats()} times")
+    counts = ops.launch_counts()
+    print(f"    launches: {counts}")
+    return {"counts": counts, "numbers": out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1165,6 +1454,15 @@ def main() -> int:
             ("decode_attention", "flash_attention", "rglru_scan"),
             ("flash_attention", "rglru_scan")),
     }
+    print("== phase 7: the cluster")
+    opt = get_arch(CLUSTER_ARCH)
+    exact = cluster_exact(torch, ops, dev,
+                          dataclasses.replace(opt, dtype="float32"))
+    cli = cluster_cli(torch, ops, dev)
+    hit = prefix_vs_cold(torch, ops, dev, cli.pop("params"))
+    torch.cuda.empty_cache()
+    cluster_parts = {"exact_f32": exact["counts"], "cli": cli["counts"],
+                     "prefix_vs_cold": hit["counts"]}
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     kernels = []
@@ -1183,6 +1481,11 @@ def main() -> int:
                  "launches_by_arch": by_arch,
                  "recovery_launches": sum(rec_by_arch.values()),
                  "recovery_launches_by_arch": rec_by_arch,
+                 # launches of phase 7's entry point (launch.serve
+                 # --cluster), and of each of its parts
+                 "cluster_launches": cli["counts"][name],
+                 "cluster_launches_by_part": {
+                     part: c[name] for part, c in cluster_parts.items()},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "kernel_ms": r["ms"], "host_paced_ms": r["paced_ms"],
                  "plain_ms": r["plain_ms"],

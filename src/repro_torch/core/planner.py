@@ -201,3 +201,10 @@ def viable_chain(plan: LoadPlan, loaded: Dict[int, Sequence[int]],
         prev_d = d
     return chain
 
+
+def critical_path_bytes(plan: LoadPlan) -> Dict[int, int]:
+    """Bytes each device must transfer before the initial chain is ready."""
+    out = {}
+    for d, segs in plan.serve_assignment.items():
+        out[d] = sum(plan.segments[s].bytes for s in segs)
+    return out

@@ -33,11 +33,25 @@ engine prefills one more batch, device 1 crashes before decode step N,
 ``recover()`` rebuilds the lost layers' state on the survivors (printing
 the reconstruct stats) and decoding continues.
 
-Not ported yet: ``--cluster`` (ROADMAP.md).
+Serverless cluster (router + autoscaler + cross-server crash re-routing,
+the reference's ``run_cluster``):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --cluster \
+        --servers 2 --requests 16 --crash-at 3 [--wall-clock]
+
+replays a ``burst_wave_trace`` (prompt lengths drawn from
+``--prompt-len``) across ``--servers`` autoscaled PipeBoost servers of at
+most 2 logical devices each, crashes server 1 after ``--crash-at``
+completions (its in-flight requests migrate to survivors with their KV
+snapshots) and rejoins it 20 ticks later, then prints TTFT/TBT
+percentiles, queue depth, GPU-seconds and the event log.  On the card the
+servers run at full width and share the base params and the merged
+adapters; ``--device cpu`` runs the reduced config.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
@@ -53,6 +67,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serving.engine import ServeRequest, ServingEngine
 
 LORA_RANK = 16
+CLUSTER_MAX_DEVICES = 2      # logical devices per cluster server
 
 
 @dataclass
@@ -67,6 +82,17 @@ class ServeResult:
     decode_tokens_per_s: float
     peak_memory_bytes: Optional[int]
     crash: Optional[Dict[str, object]] = None   # --crash-at's record
+
+
+@dataclass
+class ClusterResult:
+    router: object                       # repro_torch.cluster.ClusterRouter
+    scaler: object                       # its Autoscaler
+    n_requests: int
+    wall_s: float
+    memory_before_spawn: Optional[int]   # card bytes allocated, else None
+    memory_after_run: Optional[int]
+    peak_memory_bytes: Optional[int]
 
 
 def serving_config(arch: str, device: str, n_devices: int) -> ArchConfig:
@@ -111,11 +137,7 @@ def run(args) -> ServeResult:
           f"wall): chain={eng.chain()}")
     eng.start_fill()
 
-    adapter_params = {}
-    for i in range(args.adapters):
-        lora = randomize_lora(gen, init_lora(gen, cfg, rank=LORA_RANK,
-                                             name=f"lora{i}", device=device))
-        adapter_params[f"lora{i}"] = merge_lora(params, lora)
+    adapter_params = merged_adapters(cfg, params, args.adapters, gen)
 
     srv = ServingEngine(cfg, params, n_slots=args.slots, max_len=args.max_len,
                         policy=EpochSchedulerPolicy(epoch_budget=4,
@@ -163,6 +185,109 @@ def run(args) -> ServeResult:
                        if hot["decode_time_s"] > 0 else 0.0, peak, crash)
 
 
+def merged_adapters(cfg: ArchConfig, params, n: int,
+                    gen: torch.Generator) -> Dict[str, object]:
+    """``n`` random rank-16 adapters merged into ``params`` (the LoRA-merge
+    kernel on the card)."""
+    out = {}
+    for i in range(n):
+        lora = randomize_lora(gen, init_lora(gen, cfg, rank=LORA_RANK,
+                                             name=f"lora{i}",
+                                             device=params["embed"].device))
+        out[f"lora{i}"] = merge_lora(params, lora)
+    return out
+
+
+def run_cluster(args) -> ClusterResult:
+    """Bursty trace -> router -> autoscaled PipeBoost servers; prints the
+    TTFT/TBT percentile metrics the paper's cluster claims live on."""
+    from repro_torch.cluster import (Autoscaler, AutoscalerConfig,
+                                     ClusterConfig, ClusterRouter, WallClock,
+                                     burst_wave_trace, make_dispatch)
+    device = torch.device(args.device)
+    n_dev = min(args.devices, CLUSTER_MAX_DEVICES)
+    if n_dev != args.devices:
+        print(f"capping --devices {args.devices} -> {n_dev} per server")
+    cfg = serving_config(args.arch, args.device, n_dev)
+    if not cfg.has_decode:
+        raise SystemExit(f"{cfg.name} is encoder-only; no serve loop")
+    lo, hi = (int(x) for x in args.prompt_len.split("-"))
+    if not 1 <= lo <= hi or hi + args.new_tokens > args.max_len:
+        raise SystemExit(f"--prompt-len {args.prompt_len} plus "
+                         f"--new-tokens {args.new_tokens} must fit "
+                         f"--max-len {args.max_len}")
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = T.init_params(cfg, gen, device=device)
+    adapter_params = merged_adapters(cfg, params, args.adapters, gen)
+    trace = burst_wave_trace(args.requests, base_rate=2.0,
+                             wave_rate=8.0 * max(args.servers, 1),
+                             wave_at=0.5, wave_len=1.0, seed=args.seed,
+                             max_new_tokens=args.new_tokens,
+                             adapters=tuple(adapter_params))
+    lens = np.random.default_rng(args.seed).integers(lo, hi + 1,
+                                                     size=len(trace))
+    trace = [dataclasses.replace(a, prompt_len=int(n))
+             for a, n in zip(trace, lens)]
+    ccfg = ClusterConfig(n_devices=n_dev, n_slots=args.slots,
+                         max_len=args.max_len)
+    scaler = Autoscaler(AutoscalerConfig(target_queue_per_server=args.slots,
+                                         max_servers=args.max_servers,
+                                         ttft_slo_s=1.0))
+    _sync(device)
+    mem0 = (torch.cuda.memory_allocated(device)
+            if device.type == "cuda" else None)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    # the same router/scheduler code runs logical ticks (default,
+    # deterministic) or wall time (--wall-clock): the clock is injected
+    router = ClusterRouter(cfg, params, n_servers=args.servers, ccfg=ccfg,
+                           autoscaler=scaler, adapter_params=adapter_params,
+                           dispatch=make_dispatch(args.dispatch),
+                           clock=WallClock() if args.wall_clock else None)
+    t0 = time.perf_counter()
+    crash = args.crash_at if args.crash_at >= 0 else None
+    router.run(trace, crash_after_completions=crash,
+               crash_server_id=min(1, args.servers - 1),
+               rejoin_after_ticks=20 if crash is not None else None,
+               engine=args.engine)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    mem1 = peak = None
+    if device.type == "cuda":
+        mem1 = torch.cuda.memory_allocated(device)
+        peak = torch.cuda.max_memory_allocated(device)
+    return ClusterResult(router, scaler, len(trace), wall, mem0, mem1, peak)
+
+
+def report_cluster(res: ClusterResult, metrics_json: str = "") -> None:
+    router, scaler = res.router, res.scaler
+    s = router.metrics.summary()
+    cfg = router.cfg
+    print(f"cluster: {int(s['n_completed'])}/{res.n_requests} requests "
+          f"completed ({res.wall_s:.1f}s wall, {int(s['servers_max'])} "
+          f"servers peak, {scaler.n_scale_ups} scale-ups, "
+          f"{int(s['n_rerouted'])} crash-rerouted; {cfg.name}, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model})")
+    print(f"  TTFT  p50={s['ttft_p50']:.3f}s  p99={s['ttft_p99']:.3f}s  "
+          f"mean={s['ttft_mean']:.3f}s")
+    print(f"  TBT   p50={s['tbt_p50']:.3f}s  p99={s['tbt_p99']:.3f}s  "
+          f"mean={s['tbt_mean']:.3f}s")
+    print(f"  queue_depth_max={int(s['queue_depth_max'])}  "
+          f"gpu_seconds={s['gpu_seconds']:.1f}  "
+          f"throughput={s['throughput_tok_s']:.1f}tok/s")
+    if res.peak_memory_bytes is not None:
+        print(f"  device memory: {res.memory_before_spawn} B before the "
+              f"first spawn, {res.memory_after_run} B after the run, "
+              f"peak {res.peak_memory_bytes} B")
+    for t, kind, detail in router.metrics.events:
+        print(f"  [t={t:6.2f}] {kind:9s} {detail}")
+    if metrics_json:
+        router.metrics.to_json(metrics_json)
+        print(f"  metrics written to {metrics_json}")
+    if int(s["n_completed"]) != res.n_requests:
+        raise SystemExit("cluster run did not complete all requests")
+
+
 def crash_and_recover(eng: PipeBoostEngine, cfg: ArchConfig, rng, args,
                       device: torch.device) -> Dict[str, object]:
     """The reference's single-server crash injection: prefill one batch on
@@ -200,13 +325,39 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--adapters", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--crash-at", type=int, default=-1,
-                    help="after serving, crash device 1 of the engine at "
-                         "this decode step of a new batch and recover")
+                    help="single server: after serving, crash device 1 of "
+                         "the engine at this decode step of a new batch and "
+                         "recover; --cluster: crash server 1 after this "
+                         "many completions (re-route + rejoin)")
+    ap.add_argument("--cluster", action="store_true",
+                    help="serverless cluster mode: bursty trace across "
+                         "--servers autoscaled PipeBoost servers")
+    ap.add_argument("--servers", type=int, default=2)
+    ap.add_argument("--max-servers", type=int, default=8)
+    ap.add_argument("--dispatch", default="least_loaded",
+                    choices=("least_loaded", "slo_aware", "adapter_affine"),
+                    help="--cluster: dispatch policy (cluster/scheduler.py)")
+    ap.add_argument("--wall-clock", action="store_true",
+                    help="--cluster: run the router off time.monotonic "
+                         "instead of logical ticks")
+    ap.add_argument("--engine", default="event", choices=("event", "tick"),
+                    help="--cluster: replay loop; 'event' jumps the clock "
+                         "across quiescent gaps, 'tick' polls every tick "
+                         "(the equivalence oracle)")
+    ap.add_argument("--metrics-json", default="",
+                    help="--cluster: also dump ClusterMetrics JSON here")
     return ap
 
 
-def main(argv=None) -> ServeResult:
-    res = run(parser().parse_args(argv))
+def main(argv=None):
+    """Run the launcher; returns a ``ServeResult``, or a ``ClusterResult``
+    with ``--cluster``."""
+    args = parser().parse_args(argv)
+    if args.cluster:
+        res = run_cluster(args)
+        report_cluster(res, args.metrics_json)
+        return res
+    res = run(args)
     cs = res.cold_start
     overlapped = cs["time_to_fully_loaded"] is None \
         or cs["time_to_fully_loaded"] > cs["time_to_ready"]

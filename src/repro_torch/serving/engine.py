@@ -40,8 +40,13 @@ no prefill (N requests in one scatter); ``reconstruct_inflight`` and
 ``relay_inflight`` rebuild the layers whose state died for the live batch
 (``core.kv_reconstruct``).
 
-Not ported yet (see ROADMAP.md): the prefix cache and the pipeline prefill
-backend.
+Prefix reuse (``serving/prefix_cache.py``): with a ``PrefixCache``
+attached, an admission whose prompt shares a cached prefix imports the
+cached rows in the one scatter the imports use and walks only its uncached
+suffix through the decode step (the captured graph on the card, replayed);
+finished and drained prompts deposit their rows through ``export_slots``.
+
+Not ported yet (see ROADMAP.md): the pipeline prefill backend.
 """
 from __future__ import annotations
 
@@ -58,8 +63,10 @@ from repro_torch.core.adapter_scheduler import EpochSchedulerPolicy
 from repro_torch.core.kv_reconstruct import reconstruct_cache
 from repro_torch.kernels import ops
 from repro_torch.models import transformer
-from repro_torch.serving.snapshot import (KINDS, KVSnapshot, export_slot,
-                                          export_slots, leaf_tensor)
+from repro_torch.serving.prefix_cache import PrefixCache, PrefixEntry
+from repro_torch.serving.snapshot import (KINDS, KVSnapshot, dtype_name,
+                                          export_slot, export_slots,
+                                          leaf_tensor)
 
 BUCKET_MIN = 16
 
@@ -92,6 +99,9 @@ class ServeRequest:
     max_new_tokens: int
     adapter: Optional[str] = None
     arrival: Optional[float] = None      # stamped at submit if unset
+    model: Optional[str] = None          # fleet pool name (multi-model)
+    deadline: Optional[float] = None     # absolute TTFT deadline (clock s);
+                                         # None = no SLO attached
     generated: List[int] = field(default_factory=list)
     slot: int = -1
     done: bool = False
@@ -106,6 +116,19 @@ class ServeRequest:
 
 def _argmax(logits):
     return torch.argmax(logits, dim=-1)
+
+
+_WARMUP_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _warmup_stream(device: torch.device) -> "torch.cuda.Stream":
+    """One side stream a device for every capture's eager warm-up: cuBLAS
+    keeps a workspace (32 MiB on Hopper) for each stream it has run on, for
+    the life of the process, so a stream per capture would leak one per
+    server spawned."""
+    if device not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
+    return _WARMUP_STREAMS[device]
 
 
 def _leaves(tree, path: LeafPath = ()) -> Iterator[Tuple[LeafPath,
@@ -192,6 +215,14 @@ class ContinuousBatcher:
         self.migrated_tokens_in = 0
         self.n_batched_imports = 0       # import_snapshots scatters
         self.n_relay_scatters = 0        # relay_inflight scatters
+        # cross-request prefix reuse (serving/prefix_cache.py): admission
+        # probes an attached store per request, imports hits in one scatter
+        # and walks only the uncached suffix; finished and drained prompts
+        # deposit their rows
+        self.prefix_cache: Optional[PrefixCache] = None
+        self._prefix_evict_base = 0      # evictions before attach (delta)
+        self.prefix_hits = 0             # admissions served from the cache
+        self.prefix_hit_tokens = 0       # prompt tokens NOT prefilled again
         self._sampler: Callable = sampler or _argmax
 
     # ------------------------------------------------------------------
@@ -275,7 +306,7 @@ class ContinuousBatcher:
 
     def _capture(self) -> None:
         cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = _warmup_stream(self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             self._decode_sample()           # this step, eagerly
@@ -347,20 +378,109 @@ class ContinuousBatcher:
         self.admit_batch([req])
         return True
 
+    def attach_prefix_cache(self, cache: Optional[PrefixCache]) -> None:
+        """Attach (or detach with ``None``) a ``PrefixCache``.  Eviction
+        accounting counts from this moment, so a store that moves between
+        servers through the cluster's ``StateTier`` is not counted twice.
+        Prefix reuse needs the bucketed-attention cache (``_can_bucket``):
+        SSM and recurrent state integrates every token and a ring buffer
+        evicts real K/V, so those models skip probing."""
+        self.prefix_cache = cache
+        self._prefix_evict_base = 0 if cache is None else cache.evictions
+
     def admit_batch(self, reqs: Sequence[ServeRequest]) -> None:
         """Prefill several requests in one batched, bucketed call (the
         caller guarantees ``len(reqs) <= len(self.free)``).  Models that
-        can't pad safely are prefilled one by one at exact length."""
+        can't pad safely are prefilled one by one at exact length.
+
+        With a prefix cache attached, each fresh request first probes it:
+        hits import their cached rows and walk only the uncached suffix
+        (``_admit_prefix_hits``); misses, and re-submits that carry a
+        generated prefix, take the prefill path."""
         if len(reqs) > len(self.free):
             raise ValueError(f"{len(reqs)} requests for {len(self.free)} "
                              "free slots")
-        if not reqs:
+        hits: List[Tuple[ServeRequest, Tuple[PrefixEntry, int]]] = []
+        misses: List[ServeRequest] = []
+        for r in reqs:
+            h = None
+            if (self.prefix_cache is not None and self._can_bucket
+                    and not r.generated):
+                h = self.prefix_cache.probe(self.cfg.name, r.adapter,
+                                            np.asarray(r.tokens, np.int64))
+            if h is None:
+                misses.append(r)
+            else:
+                hits.append((r, h))
+        if hits:
+            self._admit_prefix_hits(hits)
+        if not misses:
             return
         if not self._can_bucket:
-            for r in reqs:
+            for r in misses:
                 self._admit_rows([r])
         else:
-            self._admit_rows(list(reqs))
+            self._admit_rows(misses)
+
+    def _admit_prefix_hits(self, hits: Sequence[Tuple[
+            ServeRequest, Tuple[PrefixEntry, int]]]) -> None:
+        """Admit prefix-cache hits: import the cached rows, walk the suffix.
+
+        The rows of every hit cross to the device in one copy per leaf
+        (``_upload``) and land in ONE in-place scatter (``_scatter``), each
+        hit's ``pos`` set to its usable prefix length k.  The uncached
+        suffix then walks through the decode step (on the card the captured
+        graph, replayed; never a second capture): walk step i copies suffix
+        token i of every hit still walking, and the walk's active mask,
+        into the step's static inputs in place.  Finished hits and
+        unrelated live slots are frozen by the mask: their ``pos`` is
+        restored, and the write at their uncommitted index is overwritten
+        by their next real step.  Each step's sampled row is copied on the
+        device before the next replay overwrites it, and one host read at
+        the end picks each hit's first generated token (the sample after
+        its last prompt token), so a hit emits one token at admission, as
+        a cold prefill does.  ``_io_dirty`` makes the next real step reload
+        the live slots' tokens and mask."""
+        slots: List[int] = []
+        walks: List[Tuple[int, ServeRequest, int, np.ndarray]] = []
+        for req, (entry, k) in hits:
+            slot = self.free.pop()
+            req.slot = slot
+            slots.append(slot)
+            walks.append((slot, req, k, np.asarray(req.tokens, np.int64)[k:]))
+        self._scatter(self._upload([e.rows for _, (e, _k) in hits]), slots,
+                      [k for _, (_e, k) in hits])
+        for _, (entry, _k) in hits:
+            self.prefix_cache.release(entry)
+        W = max(len(sfx) for _, _, _, sfx in walks)
+        toks = np.zeros((W, self.n_slots), np.int32)
+        act = np.zeros((W, self.n_slots), bool)
+        for slot, _req, _k, sfx in walks:
+            toks[:len(sfx), slot] = sfx
+            act[:len(sfx), slot] = True
+        dev_toks = torch.from_numpy(toks).to(self.device)
+        dev_act = torch.from_numpy(act).to(self.device)
+        walked = torch.empty_like(dev_toks)
+        for i in range(W):
+            self._dev_tokens.copy_(dev_toks[i])
+            self._dev_active.copy_(dev_act[i])
+            self._decode()
+            walked[i].copy_(self._dev_tokens)
+        walked_host = walked.cpu().numpy()   # ONE host read for the walk
+        for slot, req, k, sfx in walks:
+            self.prefix_hits += 1
+            self.prefix_hit_tokens += k
+            self.n_prefill_tokens += len(sfx)
+            tok = int(walked_host[len(sfx) - 1, slot])
+            req.generated.append(tok)
+            at_eos = req.eos_id is not None and tok == req.eos_id
+            if len(req.generated) >= req.max_new_tokens or at_eos:
+                req.done = True
+                self.free.append(slot)
+                req.slot = -1
+            else:
+                self.active[slot] = req
+        self._io_dirty = True
 
     def _admit_rows(self, reqs: List[ServeRequest]) -> None:
         bucket = max(self.bucket_for(r) for r in reqs)
@@ -427,6 +547,7 @@ class ContinuousBatcher:
         nxt_host = self._dev_tokens.cpu().numpy()  # THE one host read a step
         self.n_decode_steps += 1
         finished = []
+        done_slots: List[Tuple[int, ServeRequest]] = []
         for slot, req in list(self.active.items()):
             tok = int(nxt_host[slot])
             req.generated.append(tok)
@@ -434,12 +555,44 @@ class ContinuousBatcher:
             if len(req.generated) >= req.max_new_tokens or at_eos:
                 req.done = True
                 finished.append(req)
+                done_slots.append((slot, req))
                 del self.active[slot]
                 self.free.append(slot)
         if finished:
             self._io_dirty = True        # active mask changed
+            if self.prefix_cache is not None and self._can_bucket:
+                # deposit finished prompts before their slots are reused
+                self._deposit_prefixes(done_slots)
         self.decode_time_s += time.perf_counter() - t0
         return finished
+
+    def _deposit(self, req: ServeRequest, snap: KVSnapshot) -> None:
+        """Insert ``req``'s prompt prefix, whose rows ``snap`` holds, into
+        the attached prefix cache."""
+        toks = np.asarray(req.tokens, np.int64)
+        self.prefix_cache.insert(self.cfg.name, req.adapter, toks,
+                                 min(toks.shape[0], snap.pos),
+                                 rows=snap.rows)
+
+    def _wants_deposit(self, req: ServeRequest) -> bool:
+        """A prompt of 2+ tokens that the store does not cover yet."""
+        toks = np.asarray(req.tokens, np.int64)
+        return toks.shape[0] >= 2 and not self.prefix_cache.covers(
+            self.cfg.name, req.adapter, toks)
+
+    def _deposit_prefixes(self, pairs: Sequence[Tuple[int, ServeRequest]]
+                          ) -> None:
+        """Insert finished requests' prompt-prefix rows into the attached
+        prefix cache.  Prompts the store already covers are skipped before
+        the export, so only new prefixes cross to the host, in one batched
+        ``export_slots`` (one copy per leaf)."""
+        todo = [(slot, req) for slot, req in pairs if self._wants_deposit(req)]
+        if not todo:
+            return
+        snaps = export_slots(self.cache, [s for s, _ in todo],
+                             arch=self.cfg.name, max_len=self.max_len)
+        for (_, req), snap in zip(todo, snaps):
+            self._deposit(req, snap)
 
     def warm_decode(self) -> None:
         """Capture the decode step now, on an idle batch (a server's
@@ -467,6 +620,11 @@ class ContinuousBatcher:
                                  arch=self.cfg.name, max_len=self.max_len)
             for (_, req), snap in zip(items, snaps):
                 req.snapshot = snap
+                # the rows are on the host already: deposit the prompt
+                # prefix for free (the other half of the completion deposit)
+                if (self.prefix_cache is not None and self._can_bucket
+                        and self._wants_deposit(req)):
+                    self._deposit(req, snap)
         drained = []
         for slot, req in items:
             req.slot = -1
@@ -481,17 +639,19 @@ class ContinuousBatcher:
         return export_slot(self.cache, slot, arch=self.cfg.name,
                            max_len=self.max_len)
 
-    def _upload(self, snaps: Sequence[KVSnapshot]
+    def _upload(self, host_rows: Sequence[Dict[str, Dict[str, np.ndarray]]]
                 ) -> Dict[str, Dict[str, torch.Tensor]]:
-        """Stack the snapshots' rows of each leaf (L, n, ...) on the host
-        and copy them to the device, one copy per leaf."""
+        """Stack several slots' host rows (kind -> leaf -> (L, ...), the
+        ``KVSnapshot`` wire layout) per leaf into (L, n, ...) and copy them
+        to the device, one copy per leaf, in the cache leaf's dtype (bf16
+        rows arrive as uint16 or ml_dtypes bits)."""
         rows: Dict[str, Dict[str, torch.Tensor]] = {}
-        for kind, leaves in snaps[0].rows.items():
+        for kind, leaves in host_rows[0].items():
             rows[kind] = {}
             for leaf in leaves:
-                name = snaps[0].leaf_dtype(kind, leaf)
-                parts = [s.rows[kind][leaf] for s in snaps]
-                if name == "bfloat16":      # uint16 or ml_dtypes bits
+                name = dtype_name(self.cache[kind][leaf].dtype)
+                parts = [r[kind][leaf] for r in host_rows]
+                if name == "bfloat16":
                     parts = [np.ascontiguousarray(a).view(np.int16)
                              for a in parts]
                 rows[kind][leaf] = leaf_tensor(np.stack(parts, axis=1),
@@ -509,7 +669,7 @@ class ContinuousBatcher:
         if not snap.compatible_with(self.cache, self.cfg.name, self.max_len):
             return False
         slot = self.free.pop()
-        self._scatter(self._upload([snap]), [slot], [snap.pos])
+        self._scatter(self._upload([snap.rows]), [slot], [snap.pos])
         req.slot = slot
         self.active[slot] = req
         self._io_dirty = True
@@ -546,7 +706,8 @@ class ContinuousBatcher:
             self.migrated_tokens_in += snap.pos
             out.append(req)
         snaps = [s for _, s in usable]
-        self._scatter(self._upload(snaps), slots, [s.pos for s in snaps])
+        self._scatter(self._upload([s.rows for s in snaps]), slots,
+                      [s.pos for s in snaps])
         self.n_batched_imports += 1
         self._io_dirty = True
         return out
@@ -675,9 +836,25 @@ class ContinuousBatcher:
             "n_batched_imports": float(self.n_batched_imports),
             "n_relay_scatters": float(self.n_relay_scatters),
             "n_prefill_tokens": float(self.n_prefill_tokens),
+            "prefix_hits": float(self.prefix_hits),
+            "prefix_hit_tokens": float(self.prefix_hit_tokens),
+            "prefix_evictions": (
+                0.0 if self.prefix_cache is None
+                else float(self.prefix_cache.evictions
+                           - self._prefix_evict_base)),
         }
         s.update({k: float(v) for k, v in self.compile_stats().items()})
         return s
+
+    def release(self) -> None:
+        """Free the batcher's device state for good: the cache, the step
+        I/O, the owned parameter leaves and the captured decode step (a
+        retired cluster server keeps only its records).  Counters stay
+        readable."""
+        if self.active:
+            raise ValueError("release needs an idle batch")
+        self.cache = self._params = self._graph = None
+        self._dev_tokens = self._dev_active = None
 
 
 class ServingEngine:
@@ -842,6 +1019,11 @@ class ServingEngine:
             out.extend(item.req for item in batch)
         return out
 
+    def attach_prefix_cache(self, cache: Optional[PrefixCache]) -> None:
+        """Attach a cross-request ``PrefixCache`` to the batcher (see
+        ContinuousBatcher.attach_prefix_cache)."""
+        self.batcher.attach_prefix_cache(cache)
+
     def reconstruct_inflight(self, has_state) -> Dict[str, float]:
         """Partial-crash in-place rebuild of the live batch's lost layers
         (see ContinuousBatcher.reconstruct_inflight)."""
@@ -857,6 +1039,38 @@ class ServingEngine:
         """Nothing in flight and nothing queued."""
         return (not self.batcher.active
                 and self.policy.peek_adapter(self.policy_state) is None)
+
+    # ---- scheduling surface (read by cluster/scheduler.py's policies) ----
+    def resident_adapters(self) -> set:
+        """Adapters admittable now without an epoch-switch stall: while the
+        batch is busy only the active adapter's weights are merged in; an
+        idle batch switches to any loaded adapter.  ``None`` names the base
+        model."""
+        if self.batcher.active:
+            return {self.active_adapter}
+        return set(self.adapter_params) | {None, self.active_adapter}
+
+    def predicted_step_cost_s(self, default: float = 0.05) -> float:
+        """Measured mean wall-clock cost of one decode step (the SLO-aware
+        dispatch's unit of predicted work); ``default`` until this engine
+        has decoded anything."""
+        b = self.batcher
+        if b.n_decode_steps > 0 and b.decode_time_s > 0:
+            return b.decode_time_s / b.n_decode_steps
+        return default
+
+    def queued_requests(self) -> List[ServeRequest]:
+        """Requests enqueued but not yet admitted (no first token yet)."""
+        out: List[ServeRequest] = []
+        for q in self.policy_state.get("queues", {}).values():
+            out.extend(it.req for it in q)
+        out.extend(it.req for it in self.policy_state.get("fifo", ()))
+        return out
+
+    @property
+    def n_pending(self) -> int:
+        """Queued (not yet admitted) + in-flight requests."""
+        return len(self.queued_requests()) + self.batcher.n_active
 
     def hotpath_stats(self) -> Dict[str, float]:
         return self.batcher.hotpath_stats()

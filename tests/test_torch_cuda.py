@@ -672,3 +672,139 @@ def test_unembed_bf16_product_writes_float32(card):
     want = x.float() @ head.float()
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# the prefix cache and the cluster on the card
+# ---------------------------------------------------------------------------
+
+def _shared_prompts(cfg, sfx=(5, 9, 3), seed=4):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pre = rng.integers(0, cfg.vocab_size, size=40)
+    return [np.concatenate([pre, rng.integers(0, cfg.vocab_size, size=n)])
+            for n in sfx]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefix_hit_walk_replays_the_captured_step(card, dtype):
+    """A donor deposits its prompt; two hits admitted while a third request
+    decodes walk their suffixes through the one captured graph (replays,
+    no second capture) and give the eager walk's tokens and cache."""
+    from repro_torch.serving import engine as S
+    from repro_torch.serving.prefix_cache import PrefixCache
+    cfg = _small("qwen3-1.7b", dtype)
+    params = T.init_params(cfg, _gen(card, 5), device=card)
+    donor, *hits = _shared_prompts(cfg)
+    lone = _prompts(cfg, n=1, seed=9)[0]
+
+    def run(eager):
+        pc = PrefixCache(1 << 30)
+        b = S.ContinuousBatcher(cfg, params, 4, 128,
+                                sampler=S.quantized_greedy)
+        b.attach_prefix_cache(pc)
+        if eager:
+            b._decode = b._decode_sample
+        reqs = [S.ServeRequest(i, p, max_new_tokens=8)
+                for i, p in enumerate([donor, lone] + hits)]
+        b.admit_batch(reqs[:1])
+        while b.n_active:
+            b.step()
+        b.admit_batch([reqs[1]])
+        b.step()
+        before = ops.launch_counts()
+        b.admit_batch(reqs[2:])                 # two hits
+        torch.cuda.synchronize()
+        walked = {k: n - before[k] for k, n in ops.launch_counts().items()}
+        while b.n_active:
+            b.step()
+        return b, reqs, walked
+
+    cap, creqs, walked = run(False)
+    eag, ereqs, _ = run(True)
+    assert cap.prefix_hits == 2 and cap.prefix_hit_tokens == 80
+    assert [r.generated for r in creqs] == [r.generated for r in ereqs]
+    assert cap.compile_stats()["decode_compiles"] == 1
+    # the walk of the longer suffix (9 steps) replayed the graph each step
+    assert walked["decode_attention"] == 9 * cfg.n_layers
+    assert walked["flash_attention"] == 0
+    for leaf, t in cap.cache["attn"].items():
+        assert torch.equal(t, eag.cache["attn"][leaf]), leaf
+
+
+def _cluster_server(card, sid, cfg, params, adapters=None):
+    from repro_torch.cluster import ClusterConfig, ClusterServer
+    return ClusterServer(sid, cfg, params,
+                         ClusterConfig(n_devices=2, n_slots=4, max_len=128),
+                         adapters or {})
+
+
+def _serve_cluster_server(s, prompts, adapter=None):
+    from repro_torch.serving import engine as S
+    while s.state != "serving":
+        s.tick(0.0)
+    reqs = [S.ServeRequest(i, p, max_new_tokens=8, adapter=adapter)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        s.submit(r)
+    t = 0.0
+    while s.srv.n_pending:
+        t += 0.05
+        s.tick(t)
+    return [r.generated for r in reqs]
+
+
+def test_two_servers_in_one_process_capture_once_each(card):
+    """Two cluster servers over the same params and merged adapter, each
+    with its own captured decode step: each captures once and both give
+    the same streams."""
+    from repro_torch.lora.adapters import init_lora, merge_lora, \
+        randomize_lora
+    cfg = _small("qwen3-1.7b")
+    g = _gen(card, 6)
+    params = T.init_params(cfg, g, device=card)
+    ads = {"a": merge_lora(params, randomize_lora(
+        g, init_lora(g, cfg, rank=16, name="a", device=card)))}
+    prompts = _prompts(cfg)
+    a = _cluster_server(card, 0, cfg, params, ads)
+    b = _cluster_server(card, 1, cfg, params, ads)
+    got_a = _serve_cluster_server(a, prompts, "a")
+    got_b = _serve_cluster_server(b, prompts, "a")
+    assert got_a == got_b
+    for s in (a, b):
+        assert s.srv.batcher.compile_stats()["decode_compiles"] == 1
+    assert a.srv.batcher._graph is not b.srv.batcher._graph
+
+
+def test_retired_server_memory_comes_back(card):
+    """Spawn, serve (capture included) and retire a server, twice: after
+    the first cycle (which may leave the process's one-time cuBLAS
+    workspace of the warm-up stream), each spawn-and-retire returns the
+    card's allocated bytes to what they were before it."""
+    import gc
+    from repro_torch.lora.adapters import init_lora, merge_lora, \
+        randomize_lora
+    cfg = _small("qwen3-1.7b")
+    g = _gen(card, 7)
+    params = T.init_params(cfg, g, device=card)
+    ads = {"a": merge_lora(params, randomize_lora(
+        g, init_lora(g, cfg, rank=16, name="a", device=card)))}
+
+    def cycle(sid):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(card)
+        s = _cluster_server(card, sid, cfg, params, ads)
+        _serve_cluster_server(s, _prompts(cfg), "a")
+        held = torch.cuda.memory_allocated(card)
+        assert s.retire() == [] and s.state == "retired"
+        gc.collect()
+        torch.cuda.synchronize()
+        return s, before, held, torch.cuda.memory_allocated(card)
+
+    cycle(0)
+    s, before, held, after = cycle(1)
+    assert held > before
+    assert after <= before + (1 << 20)
+    assert s.cold_start_record()["server"] == 1
+    assert s.srv.hotpath_stats()["n_decode_steps"] > 0
