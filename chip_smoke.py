@@ -129,6 +129,43 @@ Phases (any failure exits non-zero and prints no result line):
      entry holds max_len rows, so a hit can be slower than a cold
      prefill), with the hit stream's agreement with a cold one.
 
+8. The pipeline prefill (``distributed/pipeline.py``), each belt's 4
+   stages on 4 streams of the one card (``stage_mesh(4, 1, devices=[card]
+   * 4)``), launch counts reset just before each part and read just
+   after:
+   - 8a (float32, pipeboost-opt-1.3b at full width and depth): a
+     ``PipeBoostEngine`` over 4 devices with ``enable_pipeline_prefill``
+     (2 microbatches) after one loading round prefills 4 prompts of 512
+     tokens through the belt; its logits and every cache leaf are held
+     within 2.5% of the max of ``forward(mode="prefill")``'s (phase 4's
+     tolerance), and its ``generate`` stream of 32 tokens must equal a
+     fully loaded single engine's; then the same with 2 rank-16 adapters,
+     one switched on (the LoRA kernel merges it);
+   - 8b: the same for mamba2-780m (48 layers, float32): the SSD scan runs
+     once a layer and microbatch;
+   - 8c: the sequence-chunk belt (8 chunks of 64; each chunk's flash
+     launch reads a prefix of its stage's K/V with ``q_offset``) against
+     ``forward`` (float32, opt-1.3b);
+   - 8d: a ``ServingEngine`` whose batcher is wired to a mid-load engine's
+     belt, as ``ClusterServer`` wires it on several cards, serves 4
+     requests of 64-512 tokens, 32 new each, through the belt; the engine
+     fills and switches, 4 more take the single prefill; one captured
+     decode step throughout, every stream equal to an unwired server's
+     (float32);
+   - 8e: a mid-load belt engine decodes 4 prompts of 256 tokens to token
+     8, ``repartition(dead=[3])`` must report 3 stages, the continued
+     streams and a new prefill through the 3-stage belt must equal a
+     single engine's (float32);
+   - timings (bf16, B 4, S 512, no limit): the GPipe belt and, for
+     opt-1.3b, the belt with one microbatch and the sequence-chunk belt
+     against the single eager
+     ``forward`` for opt-1.3b and mamba2-780m: wall and CUDA-event times,
+     the device span, busy time and kernel sum from ``torch.profiler``,
+     and the flash and SSD launches a call (printed as one JSON line
+     before the kernels line).
+   The kernels line adds phase 8's launches (``pipeline_launches`` and
+   ``pipeline_launches_by_part``).
+
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1349,6 +1386,384 @@ def prefix_vs_cold(torch, ops, dev, params):
     return {"counts": counts, "numbers": out}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the pipeline prefill
+# ---------------------------------------------------------------------------
+
+PIPE_ARCH = "pipeboost-opt-1.3b"
+PIPE_S = 512                 # prompt tokens of the belt's engine runs
+PIPE_NEW = 32                # tokens a request generates
+PIPE_STAGES = 4
+PIPE_MICRO = 2
+
+
+def belt_mesh(dev, n=PIPE_STAGES):
+    """n stages on n streams of the one card."""
+    from repro_torch.distributed.pipeline import stage_mesh
+    return stage_mesh(n, 1, devices=[dev] * n)
+
+
+def _leaf_err(torch, got, want):
+    """(max |got - want|, max |want|) over every cache leaf but ``pos``,
+    which must be equal."""
+    require(torch.equal(got["pos"], want["pos"]), "cache pos differs")
+    err = scale = 0.0
+    for kind in ("attn", "ssm"):
+        for leaf, w in want.get(kind, {}).items():
+            g = got[kind][leaf]
+            require(g.shape == w.shape and g.dtype == w.dtype,
+                    f"cache {kind}/{leaf}: {tuple(g.shape)} {g.dtype} "
+                    f"against {tuple(w.shape)} {w.dtype}")
+            err = max(err, (g.float() - w.float()).abs().max().item())
+            scale = max(scale, w.float().abs().max().item())
+    return err, scale
+
+
+def _hold(name, err, scale):
+    limit = LOGIT_REL_TOL * scale
+    print(f"    {name}: max|belt - forward| = {err:.3e} (max {scale:.3f}; "
+          f"limit {limit:.3e})")
+    require(err <= limit, f"{name}: {err} > {limit}")
+
+
+def _adapters(torch, cfg, dev, n):
+    from repro_torch.lora.adapters import init_lora, randomize_lora
+    g = torch.Generator(device=dev).manual_seed(41)
+    return {f"lora{i}": randomize_lora(g, init_lora(
+        g, cfg, rank=16, name=f"lora{i}", device=dev)) for i in range(n)}
+
+
+def engine_belt(torch, ops, dev, arch, kernel, adapters=0):
+    """8a/8b: a mid-load PipeBoostEngine with a 4-stage belt on the card
+    prefills 4 prompts of 512 tokens through it (float32, full width and
+    depth): logits and every cache leaf against ``forward``, then the
+    ``generate`` stream against a fully loaded single engine's (with
+    ``adapters`` merged adapters, one switched on)."""
+    import dataclasses as dc
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.engine import PipeBoostEngine, generate
+    from repro_torch.models import transformer as T
+    cfg = dc.replace(get_arch(arch), dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(43)
+    params = T.init_params(cfg, gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, PIPE_S), generator=gen,
+                         device=dev)
+    ads = _adapters(torch, cfg, dev, adapters) if adapters else {}
+    tag = f"{arch}" + (f", {adapters} adapters, lora1 on" if adapters
+                       else "")
+    print(f"  {tag} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"float32), B 4, S {PIPE_S}")
+    eng = PipeBoostEngine(cfg, params, n_devices=4, max_len=1024,
+                          adapters=ads)
+    require(eng.enable_pipeline_prefill(mesh=belt_mesh(dev),
+                                        n_micro=PIPE_MICRO),
+            "enable_pipeline_prefill refused an explicit grid")
+    eng.load_round()
+    require(eng.ready and not eng.fully_loaded, "engine not mid-load")
+    ops.reset_launch_counts()
+    if adapters:
+        eng.switch_adapter("lora1")
+    got = generate(eng, {"tokens": toks}, PIPE_NEW)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    require(eng.prefill_backend_used == "pipeline",
+            f"generate's prefill ran {eng.prefill_backend_used}")
+    require(counts[kernel] == cfg.n_layers * PIPE_MICRO,
+            f"{kernel} launched {counts[kernel]} times, expected "
+            f"{cfg.n_layers * PIPE_MICRO} (one a layer and microbatch)")
+    require(bool(counts["lora_merge"]) == bool(adapters),
+            f"lora_merge launched {counts['lora_merge']} times")
+    # the belt's logits and cache against the single prefill's
+    lg = eng.prefill({"tokens": toks})
+    require(eng.prefill_backend_used == "pipeline", "prefill ran single")
+    want_lg, want = T.forward(cfg, eng._merged_params, {"tokens": toks},
+                              mode="prefill", max_len=1024)
+    _hold("logits", (lg - want_lg).abs().max().item(),
+          want_lg.abs().max().item())
+    _hold("cache leaves", *_leaf_err(torch, eng._cache, want))
+    del want, want_lg
+    ref = PipeBoostEngine(cfg, params, n_devices=4, max_len=1024,
+                          adapters=ads)
+    while ref.load_round():
+        pass
+    ref.maybe_switch_strategy(1.0)
+    if adapters:
+        ref.switch_adapter("lora1")
+    want_toks = generate(ref, {"tokens": toks}, PIPE_NEW)
+    require(ref.prefill_backend_used == "single", "reference not single")
+    equal = int((got == want_toks).all(dim=1).sum().item())
+    print(f"    {equal} of 4 streams of {PIPE_NEW} tokens equal to a fully "
+          f"loaded single engine's; generate's launches {counts}; belts "
+          f"built {eng.compile_stats()['pipeline_prefill_compiles']}")
+    require(equal == 4, "belt streams differ from the single engine's")
+    del eng, ref, params, ads
+    torch.cuda.empty_cache()
+    return counts
+
+
+def seqchunk_belt(torch, ops, dev):
+    """8c: the sequence-chunk belt (4 stages, 8 chunks of 64) against
+    ``forward`` (float32, opt-1.3b at full width and depth)."""
+    import dataclasses as dc
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed.pipeline import \
+        build_pipeline_prefill_seqchunk
+    from repro_torch.models import transformer as T
+    cfg = dc.replace(get_arch(PIPE_ARCH), dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(47)
+    params = T.init_params(cfg, gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, PIPE_S), generator=gen,
+                         device=dev)
+    want, _ = T.forward(cfg, params, {"tokens": toks}, mode="prefill")
+    f = build_pipeline_prefill_seqchunk(cfg, n_stages=PIPE_STAGES,
+                                        n_chunks=8, mesh=belt_mesh(dev),
+                                        seq_len=PIPE_S)
+    ops.reset_launch_counts()
+    got = f(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"  {PIPE_ARCH} sequence-chunk belt, 4 stages x 8 chunks of "
+          f"{PIPE_S // 8}, float32: launches {counts}")
+    require(counts["flash_attention"] == 8 * cfg.n_layers,
+            f"flash launched {counts['flash_attention']} times")
+    _hold("logits", (got - want).abs().max().item(),
+          want.abs().max().item())
+    del params, want, got
+    torch.cuda.empty_cache()
+    return counts
+
+
+def served_belt(torch, ops, dev):
+    """8d: a ServingEngine whose batcher is wired to a mid-load engine's
+    belt (as ``ClusterServer`` wires it on several cards) serves 4
+    requests, the engine fills and switches, and 4 more go through the
+    single prefill; one captured decode step throughout, every stream
+    equal to an unwired server's (float32)."""
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.engine import PipeBoostEngine
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as S
+    cfg = dc.replace(get_arch(PIPE_ARCH), dtype="float32")
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(53),
+                           device=dev)
+    rng = np.random.default_rng(53)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(L))
+               for L in rng.integers(64, 513, size=8)]
+
+    def serve(eng=None):
+        srv = _server(S, cfg, params)
+        if eng is not None:
+            eng.wire_pipeline_prefill(srv.batcher)
+        first = [S.ServeRequest(i, p, max_new_tokens=PIPE_NEW)
+                 for i, p in enumerate(prompts[:4])]
+        for r in first:
+            srv.submit(r)
+        srv.run()
+        n_pipe = srv.batcher.n_prefill_pipeline
+        if eng is not None:
+            require(n_pipe >= 4, f"{n_pipe} admissions ran the belt")
+            while eng.load_round():
+                pass
+            require(eng.maybe_switch_strategy(request_rate=1.0),
+                    "no strategy switch")
+        later = [S.ServeRequest(10 + i, p, max_new_tokens=PIPE_NEW)
+                 for i, p in enumerate(prompts[4:])]
+        for r in later:
+            srv.submit(r)
+        srv.run()
+        require(srv.batcher.n_prefill_pipeline == n_pipe,
+                "an admission after the switch ran the belt")
+        require(srv.batcher.compile_stats()["decode_compiles"] == 1,
+                f"decode captured {srv.batcher.compile_stats()} times")
+        return [r.generated for r in first + later], srv.hotpath_stats()
+
+    eng = PipeBoostEngine(cfg, params, n_devices=4, max_len=1024)
+    require(eng.enable_pipeline_prefill(mesh=belt_mesh(dev),
+                                        n_micro=PIPE_MICRO), "refused")
+    eng.load_round()
+    ops.reset_launch_counts()
+    got, hot = serve(eng)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want, _ = serve()
+    equal = sum(a == b for a, b in zip(got, want))
+    print(f"  8d: {PIPE_ARCH} float32, 8 requests of "
+          f"{sorted(len(p) for p in prompts)} tokens, {PIPE_NEW} new: "
+          f"{int(hot['n_prefill_pipeline'])} admitted through the belt, "
+          f"{int(hot['n_prefill_reqs'] - hot['n_prefill_pipeline'])} "
+          f"through the single prefill after the switch; decode_compiles "
+          f"{int(hot['decode_compiles'])}; {equal} of 8 streams equal to "
+          f"an unwired server's; launches {counts}")
+    require(equal == 8, "wired streams differ from the unwired server's")
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def repartitioned_belt(torch, ops, dev):
+    """8e: a mid-load engine with a 4-stage belt decodes, loses device 3
+    (``repartition(dead=[3])`` reports 3 stages and rebuilds the lost
+    layers), decodes on, and its next prefill runs a 3-stage belt; both
+    streams equal a single engine's (float32)."""
+    import dataclasses as dc
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.engine import PipeBoostEngine, generate
+    from repro_torch.models import transformer as T
+    cfg = dc.replace(get_arch(PIPE_ARCH), dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(59)
+    params = T.init_params(cfg, gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, 256), generator=gen,
+                         device=dev)
+    ref = PipeBoostEngine(cfg, params, n_devices=4, max_len=1024)
+    ref.load_round()
+    want = generate(ref, {"tokens": toks}, PIPE_NEW)
+    eng = PipeBoostEngine(cfg, params, n_devices=4, max_len=1024)
+    require(eng.enable_pipeline_prefill(mesh=belt_mesh(dev),
+                                        n_micro=PIPE_MICRO), "refused")
+    eng.load_round()
+    ops.reset_launch_counts()
+    tok = generate(eng, {"tokens": toks}, RECOVERY_CUT)
+    require(eng.prefill_backend_used == "pipeline", "first prefill single")
+    stats = eng.repartition(dead=[3])
+    require(stats["n_stages"] == 3, f"repartition: {stats['n_stages']} "
+            f"stages")
+    outs = [tok]
+    t = tok[:, -1]
+    for _ in range(PIPE_NEW - RECOVERY_CUT):
+        t = torch.argmax(eng.decode(t), dim=-1).to(torch.int32)
+        outs.append(t[:, None])
+    cont = torch.cat(outs, dim=1)
+    again = generate(eng, {"tokens": toks}, PIPE_NEW)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    require(eng.prefill_backend_used == "pipeline"
+            and eng._pipe_n_stages == 3
+            and (3, 4, toks.shape[1]) in eng._pipe_fns,
+            "the prefill after the repartition did not run a 3-stage belt")
+    same_cont = int((cont == want).all(dim=1).sum().item())
+    same_again = int((again == want).all(dim=1).sum().item())
+    print(f"  8e: {PIPE_ARCH} float32, 4 x 256 tokens: repartition(dead=[3]) "
+          f"-> {stats['n_stages']} stages, {stats['lost_layers']} lost "
+          f"layers rebuilt; continued streams equal {same_cont} of 4, the "
+          f"3-stage belt's new prefill {same_again} of 4; launches {counts}")
+    require(same_cont == 4 and same_again == 4,
+            "streams changed across the repartition")
+    del eng, ref, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def belt_timings(torch, ops, dev):
+    """bf16, B 4, S 512: the GPipe belt (4 stages on 4 streams, 2
+    microbatches) and, for opt-1.3b, the same belt with one microbatch
+    and the sequence-chunk belt (8 chunks) against the single eager
+    ``forward``: wall time (host clock) and CUDA
+    events on the caller's stream around the call (host-paced: the host's
+    issue time counts), medians of 5, and from one ``torch.profiler``
+    trace each the device span (first kernel's start to last kernel's
+    end), busy time (the union of the kernels' intervals) and the sum of
+    kernel times (above busy where stages overlap); the flash and SSD
+    launches a call.  No limit."""
+    import statistics
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.configs.base import get_arch
+    from repro_torch.distributed.pipeline import (
+        build_pipeline_prefill, build_pipeline_prefill_seqchunk)
+    from repro_torch.models import transformer as T
+    out = {}
+    for arch in (PIPE_ARCH, "mamba2-780m"):
+        cfg = get_arch(arch)
+        gen = torch.Generator(device=dev).manual_seed(61)
+        params = T.init_params(cfg, gen, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (4, PIPE_S), generator=gen,
+                             device=dev)
+        batch = {"tokens": toks}
+        runs = {"forward": lambda: T.forward(cfg, params, batch,
+                                             mode="prefill", max_len=1024),
+                "gpipe": build_pipeline_prefill(
+                    cfg, n_stages=PIPE_STAGES, n_micro=PIPE_MICRO,
+                    mesh=belt_mesh(dev), seq_len=PIPE_S, max_len=1024,
+                    return_cache=True)}
+        if arch == PIPE_ARCH:
+            # one microbatch: the forward's launches plus the hops, so the
+            # belt's own cost shows apart from its doubled launches
+            runs["gpipe_1micro"] = build_pipeline_prefill(
+                cfg, n_stages=PIPE_STAGES, n_micro=1, mesh=belt_mesh(dev),
+                seq_len=PIPE_S, max_len=1024, return_cache=True)
+            runs["seqchunk"] = build_pipeline_prefill_seqchunk(
+                cfg, n_stages=PIPE_STAGES, n_chunks=8, mesh=belt_mesh(dev),
+                seq_len=PIPE_S)
+        res = {}
+        lg_fwd = None
+        for name, fn in runs.items():
+            call = fn if name == "forward" else (lambda fn=fn: fn(params,
+                                                                   batch))
+            lg = call()
+            lg = lg[0] if isinstance(lg, tuple) else lg
+            if name == "forward":
+                lg_fwd = lg
+            torch.cuda.synchronize()
+            walls, events = [], []
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record()
+                call()
+                end.record()      # after the belt's join of its streams
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                events.append(start.elapsed_time(end))
+            ops.reset_launch_counts()
+            with tprofile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            spans = sorted((e.time_range.start, e.time_range.end)
+                           for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
+            busy, total, cur = 0.0, 0.0, None
+            for s, e in spans:
+                total += e - s
+                if cur is None or s > cur[1]:
+                    if cur is not None:
+                        busy += cur[1] - cur[0]
+                    cur = [s, e]
+                else:
+                    cur[1] = max(cur[1], e)
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            span = (spans[-1][1] - spans[0][0]) if spans else 0.0
+            agree = (lg.argmax(-1) == lg_fwd.argmax(-1)).float().mean().item()
+            err = (lg - lg_fwd).abs().max().item()
+            res[name] = {"wall_ms": statistics.median(walls),
+                         "event_ms": statistics.median(events),
+                         "device_span_ms": span / 1e3,
+                         "device_busy_ms": busy / 1e3,
+                         "kernel_sum_ms": total / 1e3,
+                         "n_device_activities": len(spans),
+                         "flash_launches": counts["flash_attention"],
+                         "ssd_launches": counts["ssd_scan"],
+                         "max_abs_diff_from_forward": err,
+                         "greedy_agreement": agree}
+            print(f"  {arch} bf16 {name}: wall {res[name]['wall_ms']:.3f} "
+                  f"ms, CUDA events {res[name]['event_ms']:.3f} ms (host-"
+                  f"paced; medians of 5); profiler: device span "
+                  f"{span / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, kernel "
+                  f"sum {total / 1e3:.3f} ms over {len(spans)} activities; "
+                  f"flash {counts['flash_attention']}, SSD "
+                  f"{counts['ssd_scan']} launches; logits against forward "
+                  f"max|diff| {err:.3e}, greedy agreement {agree:.3f}")
+        out[arch] = res
+        del params, runs, lg_fwd
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1463,6 +1878,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     cluster_parts = {"exact_f32": exact["counts"], "cli": cli["counts"],
                      "prefix_vs_cold": hit["counts"]}
+    print("== phase 8: the pipeline prefill")
+    pipe_parts = {
+        "8a_opt": engine_belt(torch, ops, dev, PIPE_ARCH, "flash_attention"),
+        "8a_opt_adapter": engine_belt(torch, ops, dev, PIPE_ARCH,
+                                      "flash_attention", adapters=2),
+        "8b_mamba2": engine_belt(torch, ops, dev, "mamba2-780m", "ssd_scan"),
+        "8c_seqchunk": seqchunk_belt(torch, ops, dev),
+        "8d_served": served_belt(torch, ops, dev),
+        "8e_repartition": repartitioned_belt(torch, ops, dev),
+    }
+    for name in ("flash_attention", "ssd_scan"):
+        require(sum(c[name] for c in pipe_parts.values()) > 0,
+                f"phase 8 never launched {name}")
+    belt_ms = belt_timings(torch, ops, dev)
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     kernels = []
@@ -1486,6 +1915,11 @@ def main() -> int:
                  "cluster_launches": cli["counts"][name],
                  "cluster_launches_by_part": {
                      part: c[name] for part, c in cluster_parts.items()},
+                 # launches of phase 8's belt runs, and of each of its parts
+                 "pipeline_launches": sum(c[name]
+                                          for c in pipe_parts.values()),
+                 "pipeline_launches_by_part": {
+                     part: c[name] for part, c in pipe_parts.items()},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "kernel_ms": r["ms"], "host_paced_ms": r["paced_ms"],
                  "plain_ms": r["plain_ms"],
@@ -1496,6 +1930,7 @@ def main() -> int:
                 entry[extra] = r[extra]
         kernels.append(entry)
     print(f"nvidia-smi: {smi}")
+    print(json.dumps({"pipeline_belt_timings": belt_ms}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -129,10 +129,10 @@ class ClusterConfig:
 class ClusterServer:
     """One autoscaled GPU-server replica.
 
-    Not ported yet (see ROADMAP.md): the pipeline prefill.  The reference
-    wires it only where ``enable_pipeline_prefill`` finds two or more XLA
-    devices (``repro/cluster/router.py:140-147``); on one device, and so
-    here, the batcher keeps its single prefill."""
+    Overlapped cold start: where ``enable_pipeline_prefill`` finds two or
+    more cards, the batcher's admission prefills run the engine's pipeline
+    belt until the strategy switch; on one card it keeps its single
+    prefill."""
 
     def __init__(self, sid: int, cfg: ArchConfig, params, ccfg: ClusterConfig,
                  adapter_params: Optional[Dict[str, Any]] = None):
@@ -147,6 +147,8 @@ class ClusterServer:
                                         max_batch=ccfg.n_slots),
             adapter_params=adapter_params or {})
         self.srv.batcher.sampler = quantized_greedy
+        if self.engine.enable_pipeline_prefill():
+            self.engine.wire_pipeline_prefill(self.srv.batcher)
         self.state = "loading"
         self.idle_ticks = 0
         self.idle_since: Optional[float] = None  # clock time idleness began

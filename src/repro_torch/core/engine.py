@@ -12,16 +12,23 @@ state a fresh prefill would give (``core.kv_reconstruct``).
 
 The engine's own ``prefill`` and ``decode`` (used by ``generate`` and the
 launcher's ``--crash-at``) run eagerly; the serving batcher's decode step
-is the captured one.  Not ported yet (see ROADMAP.md): the pipeline
-prefill, so ``_repartition_pipeline`` reports 0 stages, as the reference
-does when none was requested.
+is the captured one.
+
+Pipeline prefill (§4.3, ``enable_pipeline_prefill``): while the engine is
+in pipeline strategy, a prefill whose rows split over the ('data',
+'stage') grid runs the belt of ``distributed/pipeline.py``, stage i on
+device (d, i) of the grid, and its cache feeds the same decode step the
+single prefill's does.  Without an explicit grid the engine sizes one over
+``visible_devices()``, so on one card it keeps the single prefill, as the
+reference does on one XLA device.
 """
 from __future__ import annotations
 
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Set, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Set, Tuple)
 
 import torch
 
@@ -30,6 +37,7 @@ from repro_torch.core import analytic
 from repro_torch.core.kv_reconstruct import reconstruct_cache
 from repro_torch.core.planner import (LoadPlan, make_plan, reassign,
                                       viable_chain)
+from repro_torch.distributed import pipeline
 from repro_torch.lora.adapters import LoRAAdapter, merge_lora
 from repro_torch.models import transformer
 
@@ -107,6 +115,15 @@ class PipeBoostEngine:
         # over the new plan (same cadence and budget)
         self._fill_interval_s = 0.0
         self._fill_budget: Optional[int] = None
+        # the pipeline prefill belt: off until enable_pipeline_prefill
+        self._pipe_enabled = False
+        self._pipe_requested = False
+        self._pipe_mesh: Optional[pipeline.StageMesh] = None
+        self._pipe_pool: List[torch.device] = []   # a repartition re-splits
+        self._pipe_n_stages = 0
+        self._pipe_n_micro = 0
+        self._pipe_fns: Dict[Tuple[int, int, int], Callable] = {}
+        self.prefill_backend_used: Optional[str] = None
         self._reset_load_accounting()
 
     # ---------------- loading ------------------------------------------------
@@ -380,21 +397,121 @@ class PipeBoostEngine:
                     surviving |= d.kv_segments
         return self._segment_layer_mask(surviving)
 
+    # ---------------- the pipeline prefill belt (§4.3) ------------------------
+
+    def enable_pipeline_prefill(self, mesh: Optional[pipeline.StageMesh]
+                                = None, n_micro: int = 2) -> bool:
+        """Opt the TTFT-critical prefill into the pipeline belt
+        (``distributed/pipeline.py``): stage i runs the layers of the
+        segments device i has loaded, so the first token computes on the
+        partial chain while later segments keep loading.
+
+        Without ``mesh`` the ('data', 'stage') grid is sized over
+        ``visible_devices()``: the most stages that divide both the layer
+        count and the device count.  Returns False (the engine keeps its
+        single prefill) for fewer than 2 devices, a hybrid layer stack or
+        a layer count no stage count divides."""
+        kinds = set(self.cfg.layer_kinds())
+        if len(kinds) != 1 or next(iter(kinds)) not in ("attn", "ssm"):
+            return False
+        L = self.cfg.n_layers
+        if mesh is None:
+            devs = pipeline.visible_devices()
+            if len(devs) < 2:
+                return False
+            n_stages = next((s for s in range(min(len(devs), L), 1, -1)
+                             if L % s == 0 and len(devs) % s == 0), 0)
+            if not n_stages:
+                return False
+            mesh = pipeline.stage_mesh(n_stages, len(devs) // n_stages,
+                                       devices=devs)
+        else:
+            n_stages = mesh.shape["stage"]
+            if L % n_stages:
+                return False
+        self._pipe_mesh = mesh
+        self._pipe_pool = mesh.flat()
+        self._pipe_n_stages = n_stages
+        self._pipe_n_micro = max(1, n_micro)
+        self._pipe_fns = {}
+        self._pipe_enabled = True
+        self._pipe_requested = True
+        return True
+
+    def serving_pipeline_fits(self, P: int, S: int) -> bool:
+        """Shape pre-check for ``serving_pipeline_prefill`` (the batcher's
+        dispatch): the rows must split over the grid's data rows and each
+        row's share into the microbatches."""
+        if not self._pipe_enabled or self._pipe_mesh is None:
+            return False
+        n_data = self._pipe_mesh.shape["data"]
+        return P % n_data == 0 and (P // n_data) % self._pipe_n_micro == 0
+
+    def wire_pipeline_prefill(self, batcher) -> None:
+        """Point a ``ContinuousBatcher``'s admission prefills at this
+        engine's belt while the engine is in pipeline strategy (the wiring
+        ``ClusterServer`` and the launcher make after a successful
+        ``enable_pipeline_prefill``)."""
+        batcher.set_pipeline_prefill(self.serving_pipeline_prefill,
+                                     fits=self.serving_pipeline_fits)
+        batcher.prefill_backend = (
+            lambda: "pipeline" if self.strategy == "pipeline" else "single")
+
+    def _pipeline_fits(self, batch: Dict) -> bool:
+        return (self.strategy == "pipeline"
+                and self.serving_pipeline_fits(*batch["tokens"].shape))
+
+    def _pipeline_prefill_fn(self, B: int, S: int) -> Callable:
+        """The belt for (stage count, B, S), built once: a repartition back
+        to a stage count seen before reuses its belt, so the count
+        (``pipeline_prefill_compiles``) grows with distinct stage plans
+        and shapes, never with crash events."""
+        key = (self._pipe_n_stages, B, S)
+        if key not in self._pipe_fns:
+            self._pipe_fns[key] = pipeline.build_pipeline_prefill(
+                self.cfg, n_stages=self._pipe_n_stages,
+                n_micro=self._pipe_n_micro, mesh=self._pipe_mesh,
+                seq_len=S, max_len=self.max_len, return_cache=True)
+        return self._pipe_fns[key]
+
+    def serving_pipeline_prefill(self, params, batch: Dict):
+        """``ContinuousBatcher.set_pipeline_prefill``'s contract: an
+        admission prefill (right-padded rows and their ``last_index``)
+        through the belt -> (logits (P, V), cache) with the layout of
+        ``forward(mode="prefill")``, ``pos`` at ``last_index + 1``."""
+        B, S = batch["tokens"].shape
+        return self._pipeline_prefill_fn(B, S)(params, batch)
+
+    def _pipeline_fn_call(self, batch: Dict):
+        """The strategy hand-off (§4.3.3): the belt leaves each stage's
+        state in the one cache the decode step reads, with the single
+        prefill's keys, shapes and dtypes, so the switch re-lays nothing
+        and the decode step is the same."""
+        return self.serving_pipeline_prefill(self._merged_params,
+                                             {"tokens": batch["tokens"]})
+
     def prefill(self, batch: Dict) -> torch.Tensor:
         """Serve a prefill the moment a chain exists (after each device
-        loaded only ~1/N of the model); runs eagerly."""
+        loaded only ~1/N of the model); runs eagerly.  In pipeline
+        strategy with the belt enabled it runs the belt."""
         chain = self.chain()
         if chain is None:
             raise EngineError("no viable pipeline chain: model not ready")
-        logits, self._cache = transformer.forward(
-            self.cfg, self._merged_params, batch, mode="prefill",
-            max_len=self.max_len)
-        self._prefill_shapes.add(tuple(batch["tokens"].shape))
+        if self._pipeline_fits(batch):
+            logits, self._cache = self._pipeline_fn_call(batch)
+            self.prefill_backend_used = "pipeline"
+        else:
+            logits, self._cache = transformer.forward(
+                self.cfg, self._merged_params, batch, mode="prefill",
+                max_len=self.max_len)
+            self._prefill_shapes.add(tuple(batch["tokens"].shape))
+            self.prefill_backend_used = "single"
         self._tokens_seen = batch.get("tokens")
         self._own_kv(chain)
         with self._load_lock:
             self.events.append(("prefill", chain))
-            self.events.append(("prefill_backend", "single"))
+            self.events.append(("prefill_backend",
+                                self.prefill_backend_used))
         return logits
 
     def decode(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -415,10 +532,11 @@ class PipeBoostEngine:
     def compile_stats(self) -> Dict[str, int]:
         """The reference's compile counts of the engine's own paths: its
         decode runs eagerly (0 captures), ``prefill_compiles`` counts the
-        distinct prefill shapes run, and no pipeline prefill is ported."""
+        distinct single-prefill shapes run and
+        ``pipeline_prefill_compiles`` the belts built."""
         return {"decode_compiles": 0,
                 "prefill_compiles": len(self._prefill_shapes),
-                "pipeline_prefill_compiles": 0}
+                "pipeline_prefill_compiles": len(self._pipe_fns)}
 
     # ---------------- strategy switching (§4.3.3) ----------------------------
 
@@ -490,10 +608,32 @@ class PipeBoostEngine:
         self._record_event("revive", list(device_ids))
 
     def _repartition_pipeline(self) -> int:
-        """The pipeline prefill's stage count after a repartition: 0, since
-        no pipeline prefill is ported (the reference's value when none was
-        requested); decode is unaffected."""
-        return 0
+        """Re-split the belt for the alive-device count: the most stages
+        that divide the layer stack and fit both the alive devices and the
+        pool the engine's grid was built from, possibly over a SUBSET of
+        the pool (``stage_mesh``), so 3 stages run after a 4 -> 3 shrink.
+        With no split the engine falls back to the single prefill (decode
+        is unaffected either way).  Built belts are kept: they are keyed
+        by (n_stages, B, S).  Returns the stage count (0 when no belt was
+        requested or none fits)."""
+        if not self._pipe_requested:
+            return self._pipe_n_stages if self._pipe_enabled else 0
+        with self._load_lock:
+            n_alive = sum(1 for d in self.devices if d.alive)
+        L = self.cfg.n_layers
+        n_stages = next((s for s in range(min(n_alive, len(self._pipe_pool),
+                                              L), 1, -1) if L % s == 0), 0)
+        if not n_stages:
+            self._pipe_enabled = False
+            self._pipe_mesh = None
+            self._pipe_n_stages = 0
+            return 0
+        if n_stages != self._pipe_n_stages or not self._pipe_enabled:
+            self._pipe_mesh = pipeline.stage_mesh(n_stages,
+                                                  devices=self._pipe_pool)
+            self._pipe_n_stages = n_stages
+            self._pipe_enabled = True
+        return n_stages
 
     def repartition(self, dead: Sequence[int] = (),
                     revive: Sequence[int] = ()) -> Dict[str, Any]:

@@ -26,7 +26,10 @@ through the decode kernel and the elementwise recurrent step) with
 ``--adapters`` rank-16 adapters merged by the LoRA-merge kernel (an
 attention-free model's adapters are empty and merge as the identity).
 It prints ``cold_start_stats()``, the wall time to first token of each
-request, decode throughput and the generated tokens.
+request, decode throughput and the generated tokens.  On a host with two
+or more cards, admissions of an attention model run the engine's pipeline
+prefill belt (``enable_pipeline_prefill``); on one card the single
+prefill.
 
 ``--crash-at N`` then injects the reference's single-server crash: the
 engine prefills one more batch, device 1 crashes before decode step N,
@@ -143,6 +146,10 @@ def run(args) -> ServeResult:
                         policy=EpochSchedulerPolicy(epoch_budget=4,
                                                     max_batch=args.slots),
                         adapter_params=adapter_params)
+    if eng.enable_pipeline_prefill():
+        # several cards: admission prefills run the engine's pipeline belt
+        # until its strategy switch (the wiring ClusterServer makes)
+        eng.wire_pipeline_prefill(srv.batcher)
     rng = np.random.default_rng(args.seed)
     reqs = []
     for i in range(args.requests):

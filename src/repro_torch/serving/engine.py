@@ -46,7 +46,11 @@ cached rows in the one scatter the imports use and walks only its uncached
 suffix through the decode step (the captured graph on the card, replayed);
 finished and drained prompts deposit their rows through ``export_slots``.
 
-Not ported yet (see ROADMAP.md): the pipeline prefill backend.
+Pipeline prefill (``set_pipeline_prefill``): while the host engine is
+mid-load in pipeline strategy, bucketed admissions run the engine's belt
+(``distributed/pipeline.py``) over the partial stage chain; its cache has
+the single prefill's layout and lands through the same ``_scatter``, so
+the captured decode step serves either.
 """
 from __future__ import annotations
 
@@ -190,6 +194,13 @@ class ContinuousBatcher:
         self._can_bucket = (
             set(cfg.layer_kinds()) <= {"attn"}
             and transformer.attn_cache_capacity(cfg, max_len) == max_len)
+        # prefill backend dispatch (overlapped cold start): while the host
+        # engine is mid-load in pipeline strategy, admission prefills run
+        # the injected belt; after the strategy switch, or when nothing was
+        # injected, the single prefill
+        self.prefill_backend: Callable[[], str] = lambda: "single"
+        self._pipe_prefill: Optional[Callable] = None
+        self._pipe_fits: Callable[[int, int], bool] = lambda P, S: True
         # static step I/O: refilled in place only when slot membership
         # changes; the step writes its sampled tokens back into _dev_tokens
         self._dev_tokens = torch.zeros((n_slots,), dtype=torch.int32,
@@ -209,6 +220,7 @@ class ContinuousBatcher:
         self.n_prefill_calls = 0
         self.n_prefill_reqs = 0
         self.n_prefill_tokens = 0        # real (unpadded) tokens prefilled
+        self.n_prefill_pipeline = 0      # requests prefilled by the belt
         # migration and rebuild counters (snapshot imports; tokens whose
         # prefill was skipped because their state arrived with them)
         self.n_migrated_in = 0
@@ -324,14 +336,19 @@ class ContinuousBatcher:
         self._graph, self._graph_launches = graph, delta
         self.n_decode_captures += 1
 
-    def _prefill_write(self, toks, last_idx, slots):
-        """Prefill padded prompts (P, bucket) and write the first
+    def _prefill_write(self, toks, last_idx, slots, backend: str):
+        """Prefill padded prompts (P, bucket) through ``backend`` (the
+        single prefill or the injected belt) and write the first
         ``len(slots)`` rows into their slots in place (one ``index_copy_``
         per cache leaf); the remaining rows are padding."""
-        self._prefill_shapes.add(tuple(toks.shape))
-        logits, c1 = transformer.forward(
-            self.cfg, self._params, {"tokens": toks}, mode="prefill",
-            max_len=self.max_len, last_index=last_idx)
+        if backend == "pipeline":
+            logits, c1 = self._pipe_prefill(
+                self._params, {"tokens": toks, "last_index": last_idx})
+        else:
+            self._prefill_shapes.add(tuple(toks.shape))
+            logits, c1 = transformer.forward(
+                self.cfg, self._params, {"tokens": toks}, mode="prefill",
+                max_len=self.max_len, last_index=last_idx)
         n = slots.shape[0]
         self._scatter({kind: {leaf: rows[:, :n]
                               for leaf, rows in c1[kind].items()}
@@ -354,6 +371,30 @@ class ContinuousBatcher:
     # ------------------------------------------------------------------
     # prefill / admission
     # ------------------------------------------------------------------
+    def set_pipeline_prefill(self, fn: Callable,
+                             fits: Optional[Callable[[int, int], bool]]
+                             = None) -> None:
+        """Inject the pipeline prefill for cold-start admissions.
+
+        ``fn(params, {"tokens": (P, S), "last_index": (P,)})`` returns
+        (logits (P, V), cache) in ``forward(mode="prefill")``'s layout with
+        ``pos`` at ``last_index + 1``: ``build_pipeline_prefill`` with
+        ``return_cache=True`` (``PipeBoostEngine.serving_pipeline_prefill``).
+        ``fits(P, S)`` pre-checks that the rows split over the belt's grid;
+        unfit shapes take the single prefill.  Admission uses it only while
+        ``prefill_backend()`` says "pipeline" (mid-load, before the
+        strategy switch)."""
+        self._pipe_prefill = fn
+        if fits is not None:
+            self._pipe_fits = fits
+
+    def _choose_prefill_backend(self, P: int, bucket: int) -> str:
+        if (self._pipe_prefill is not None and self._can_bucket
+                and self.prefill_backend() == "pipeline"
+                and self._pipe_fits(P, bucket)):
+            return "pipeline"
+        return "single"
+
     def _total_len(self, req: ServeRequest) -> int:
         return len(req.tokens) + len(req.generated)
 
@@ -504,9 +545,12 @@ class ContinuousBatcher:
             slots[i] = slot
             assigned.append((i, slot, req))
         dev = self.device
+        backend = self._choose_prefill_backend(P, bucket)
         first = self._prefill_write(torch.from_numpy(toks).to(dev),
                                     torch.from_numpy(last_idx).to(dev),
-                                    torch.from_numpy(slots).to(dev))
+                                    torch.from_numpy(slots).to(dev), backend)
+        if backend == "pipeline":
+            self.n_prefill_pipeline += len(reqs)
         first_host = first.cpu().numpy()   # admission reads first tokens
         self.n_prefill_calls += 1
         self.n_prefill_reqs += len(reqs)
@@ -833,6 +877,7 @@ class ContinuousBatcher:
                                    if self.decode_time_s > 0 else 0.0),
             "n_prefill_calls": float(self.n_prefill_calls),
             "n_prefill_reqs": float(self.n_prefill_reqs),
+            "n_prefill_pipeline": float(self.n_prefill_pipeline),
             "n_batched_imports": float(self.n_batched_imports),
             "n_relay_scatters": float(self.n_relay_scatters),
             "n_prefill_tokens": float(self.n_prefill_tokens),

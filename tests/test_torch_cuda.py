@@ -808,3 +808,158 @@ def test_retired_server_memory_comes_back(card):
     assert after <= before + (1 << 20)
     assert s.cold_start_record()["server"] == 1
     assert s.srv.hotpath_stats()["n_decode_steps"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the pipeline prefill belt on the card
+# ---------------------------------------------------------------------------
+
+def _belt_mesh(card, n=4):
+    from repro_torch.distributed.pipeline import stage_mesh
+    return stage_mesh(n, 1, devices=[card] * n)
+
+
+def _close(got, want, rel):
+    """max |got - want| within ``rel`` of max |want|."""
+    scale = max(want.float().abs().max().item(), 1e-6)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rel * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-780m"])
+def test_belt_on_the_card_matches_forward(card, arch, dtype):
+    """The GPipe belt over 4 stage streams of one card, 2 microbatches:
+    logits and every cache leaf against ``forward(mode="prefill")`` (float32
+    within 1e-4 of max |x|, sum order only; bf16 within 2.5%, as the model
+    test holds kernels to plain), ``pos`` equal; every stage's layers
+    launch the flash kernel or the SSD scan once a microbatch."""
+    from repro_torch.distributed.pipeline import build_pipeline_prefill
+    cfg = _small(arch, dtype=dtype)
+    params = T.init_params(cfg, _gen(card, 3), device=card)
+    toks = torch.randint(0, cfg.vocab_size, (4, 64), generator=_gen(card, 4),
+                         device=card)
+    want_lg, want = T.forward(cfg, params, {"tokens": toks}, mode="prefill",
+                              max_len=128)
+    f = build_pipeline_prefill(cfg, n_stages=4, n_micro=2,
+                               mesh=_belt_mesh(card), seq_len=64,
+                               max_len=128, return_cache=True)
+    ops.reset_launch_counts()
+    lg, cache = f(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    kernel = "ssd_scan" if arch == "mamba2-780m" else "flash_attention"
+    assert counts[kernel] == 2 * cfg.n_layers
+    rel = 1e-4 if dtype == "float32" else 2.5e-2
+    _close(lg, want_lg, rel)
+    for kind in ("attn", "ssm"):
+        for leaf, t in want.get(kind, {}).items():
+            assert cache[kind][leaf].dtype == t.dtype
+            _close(cache[kind][leaf], t, rel)
+    assert torch.equal(cache["pos"], want["pos"])
+
+
+def test_seqchunk_belt_on_the_card(card):
+    """The sequence-chunk belt (4 stages, 8 chunks of 16): every chunk's
+    flash launch reads a prefix of its stage's K/V buffer (q_offset > 0,
+    Sk > Sq); logits within 1e-4 of max |logit| of ``forward`` (float32)."""
+    from repro_torch.distributed.pipeline import \
+        build_pipeline_prefill_seqchunk
+    cfg = _small("qwen3-1.7b", dtype="float32")
+    params = T.init_params(cfg, _gen(card, 3), device=card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=_gen(card, 4),
+                         device=card)
+    want, _ = T.forward(cfg, params, {"tokens": toks}, mode="prefill")
+    f = build_pipeline_prefill_seqchunk(cfg, n_stages=4, n_chunks=8,
+                                        mesh=_belt_mesh(card), seq_len=128)
+    ops.reset_launch_counts()
+    got = f(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 8 * cfg.n_layers
+    _close(got, want, 1e-4)
+
+
+def _wired_server(card, cfg, params, max_len=128):
+    from repro_torch.core.engine import PipeBoostEngine
+    from repro_torch.serving import engine as S
+    eng = PipeBoostEngine(cfg, params, n_devices=4, max_len=max_len)
+    assert eng.enable_pipeline_prefill(mesh=_belt_mesh(card))
+    eng.load_round()
+    srv = S.ServingEngine(cfg, params, n_slots=4, max_len=max_len)
+    srv.batcher.sampler = S.quantized_greedy
+    eng.wire_pipeline_prefill(srv.batcher)
+    return eng, srv
+
+
+def test_pipeline_switch_keeps_one_capture(card):
+    """A batcher wired to a mid-load engine: its first admissions run the
+    belt, the decode step is captured once over the belt's rows, and after
+    the fill and the strategy switch later admissions take the single
+    prefill under the same graph; every stream equals an unwired server's
+    (float32)."""
+    from repro_torch.serving import engine as S
+    cfg = _small("qwen3-1.7b", dtype="float32")
+    params = T.init_params(cfg, _gen(card, 3), device=card)
+    prompts = _prompts(cfg, n=8, seed=2)
+
+    def serve(srv, eng=None):
+        first = [S.ServeRequest(i, p, max_new_tokens=8)
+                 for i, p in enumerate(prompts[:4])]
+        for r in first:
+            srv.submit(r)
+        srv.run()
+        if eng is not None:
+            assert srv.batcher.n_prefill_pipeline == 4
+            while eng.load_round():
+                pass
+            assert eng.maybe_switch_strategy(request_rate=1.0)
+        later = [S.ServeRequest(10 + i, p, max_new_tokens=8)
+                 for i, p in enumerate(prompts[4:])]
+        for r in later:
+            srv.submit(r)
+        srv.run()
+        return [r.generated for r in first + later]
+
+    eng, wired = _wired_server(card, cfg, params)
+    got = serve(wired, eng)
+    assert wired.batcher.n_prefill_pipeline == 4
+    assert wired.batcher.compile_stats()["decode_compiles"] == 1
+    plain, _ = _serve(card, cfg, params, [])
+    assert serve(plain) == got
+
+
+def test_wired_server_memory_comes_back(card):
+    """Spawn a batcher wired to a mid-load engine's belt, serve through it
+    and release it, twice: after the first cycle (which makes the process's
+    stage streams and their cuBLAS workspaces), the second returns the
+    card's allocated bytes to what they were, so the stage streams are
+    reused and not made anew."""
+    import gc
+    from repro_torch.distributed import pipeline as P
+    from repro_torch.serving import engine as S
+    cfg = _small("qwen3-1.7b")
+    params = T.init_params(cfg, _gen(card, 5), device=card)
+    prompts = _prompts(cfg)
+
+    def cycle():
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(card)
+        eng, srv = _wired_server(card, cfg, params)
+        for i, p in enumerate(prompts):
+            srv.submit(S.ServeRequest(i, p, max_new_tokens=6))
+        srv.run()
+        assert srv.batcher.n_prefill_pipeline == len(prompts)
+        held = torch.cuda.memory_allocated(card)
+        srv.batcher.release()
+        del eng, srv
+        gc.collect()
+        torch.cuda.synchronize()
+        return before, held, torch.cuda.memory_allocated(card)
+
+    cycle()
+    n_streams = len(P._STAGE_STREAMS)
+    before, held, after = cycle()
+    assert len(P._STAGE_STREAMS) == n_streams
+    assert held > before
+    assert after <= before + (1 << 20)

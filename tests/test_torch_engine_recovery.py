@@ -182,7 +182,7 @@ def test_repartition_shrink_widen_matches_reference():
     assert shrink["n_alive"] == 3 and widen["n_alive"] == 4
     assert 0 < shrink["lost_layers"] < 8 and widen["lost_layers"] == 0
     assert shrink["reconstruct"]["kv_reused"] > 0
-    assert shrink["n_stages"] == 0           # no pipeline prefill ported
+    assert shrink["n_stages"] == 0           # no belt requested
     for a, b in zip(tout, jout):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     ref = teng.PipeBoostEngine(te.cfg, te._full_params, n_devices=4,

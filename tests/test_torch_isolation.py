@@ -23,6 +23,7 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(len(names), bad)
+print(" ".join(names))
 sys.exit(1 if bad else 0)
 """
 
@@ -34,6 +35,8 @@ def test_import_loads_no_jax_and_no_reference():
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 20
+    assert "repro_torch.distributed.pipeline" in \
+        out.stdout.splitlines()[-1].split()
 
 
 def _banned(name: str) -> bool:
