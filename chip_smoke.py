@@ -165,6 +165,44 @@ Phases (any failure exits non-zero and prints no result line):
      before the kernels line).
    The kernels line adds phase 8's launches (``pipeline_launches`` and
    ``pipeline_launches_by_part``).
+9. The remaining model families (launch counts reset just before each
+   part and read just after):
+   - 9a: ``launch.serve --arch qwen2-moe-a2.7b --adapters 2`` as phase 5
+     runs it (bf16, full width and depth: 24 layers, 60 routed experts
+     top-4 and 4 shared, 14.3 B parameters); each prompt prefills alone
+     (capacity couples the rows), decode runs the dropless experts in the
+     captured step (``decode_compiles`` 1); TTFT, decode tokens/s and
+     peak memory printed, then 4 new live requests and the median of 20
+     replays of the captured step against its bound (every block weight,
+     the LM head and the live cache rows read once);
+   - 9b: qwen2-moe-a2.7b at full width, depth cut to 4 layers, one rank-16
+     adapter merged: a prefill of 4 x 192 and 8 decode steps through the
+     kernels and the plain versions; in bf16 the share of (token, choice)
+     pairs routed alike and both runs' distances to the float32 plain run
+     of the same weights (printed, no limit: a flipped top-k amplifies a
+     small attention difference); in float32 the logits within 2.5% of
+     max |logit| and the greedy stream equal; a float32 prefill at
+     capacity factor 0.5 whose dropped pairs must be equal in both runs;
+   - 9c: the MoE belts, float32, 8 layers, capacity factor E/K (nothing
+     can drop): the GPipe belt (4 stage streams, 2 microbatches) and the
+     sequence-chunk belt (8 chunks) against ``forward`` within 1e-5 of max
+     |x| (logits and cache), then a mid-load belt engine's crash of device
+     1 at decode step 8 and ``recover()``, its 4 streams of 32 tokens
+     equal to an uncrashed single engine's;
+   - 9d: hubert-xlarge at full width and depth (48 layers, 16 heads of
+     80, non-causal, LayerNorm), ``forward`` from embeddings 4 x 512
+     through the kernels and the plain versions in bf16 (printed) and
+     float32 (within 2.5% of max |logit|); flash at head dim 80 alone
+     (non-causal, causal, windows, GQA, ``q_offset``; bf16 within 2e-2,
+     float32 within 2e-5 of the plain version) and timed at hubert's
+     shape beside SDPA and its bound (``at_hubert`` in the flash entry);
+   - 9e: qwen2-vl-72b at full width, depth cut to 4 layers, float32: a
+     prefill of 2 x 256 embeddings with (t, h, w) M-RoPE positions that
+     all differ and 8 decode steps of embeddings, within 2.5% of max
+     |logit| of the plain run, every step's argmax equal.
+   The kernels line counts 9a among the serve runs (``launches``,
+   ``launches_by_arch``) and every part in ``families_launches_by_part``;
+   a ``{"moe_decode_step": ...}`` line before it holds 9a's step.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -357,13 +395,21 @@ def check_decode(torch, ops, dev, results):
             4, C, 10, 1, 256, [0, 300, C - 1, C - 1], True, "random"),
         "recurrentgemma G10 hd256 ragged": (4, C, 10, 1, 256, ragged, False,
                                             None),
+        # qwen2-moe-a2.7b's decode (9a): 16 heads of 128 on 16 KV heads
+        "qwen2-moe full cache + fold": (4, C, 16, 16, 128, [C - 1] * 4,
+                                        True, None),
+        "qwen2-moe ragged + fold": (4, C, 16, 16, 128, ragged, True, None),
+        "qwen2-moe ragged": (4, C, 16, 16, 128, ragged, False, None),
+        # qwen2-vl-72b's decode (9e): 64 heads on 8
+        "qwen2-vl G8 ragged + fold": (4, C, 64, 8, 128, ragged, True, None),
     }
     # the edges of the cache splits: lens at 1, one split's width, one
     # more, C - 1 (qwen3 at a C that is not a multiple of the width); then
     # every row empty (every split empty)
     for tag, Cx, Hq, Hkv, d in (("opt", C, 32, 32, 64),
                                 ("qwen3 GQA C=1000", 1000, 16, 8, 128),
-                                ("recurrentgemma G10 hd256", C, 10, 1, 256)):
+                                ("recurrentgemma G10 hd256", C, 10, 1, 256),
+                                ("qwen2-moe", C, 16, 16, 128)):
         width = -(-Cx // dec.decode_splits(4, Hkv, Cx, d))
         edges = [1, width, width + 1, Cx - 1]
         for fold in (True, False):
@@ -428,27 +474,33 @@ def check_decode(torch, ops, dev, results):
     main = timed("opt-1.3b", cases["opt full cache + fold"])
     rg = timed("recurrentgemma-2b", cases[
         "recurrentgemma G10 hd256 ring + fold"])
+    moe = timed("qwen2-moe-a2.7b", cases["qwen2-moe full cache + fold"])
     results["decode_attention"] = dict(max_abs_err=worst, **main,
-                                       at_recurrentgemma=rg)
+                                       at_recurrentgemma=rg,
+                                       at_qwen2_moe=moe)
+
+
+FLASH_F32_TOL = 2e-5          # float32 flash at head dim 80: absolute
 
 
 def check_flash(torch, ops, dev, results):
     g = torch.Generator(device=dev).manual_seed(11)
     bf = torch.bfloat16
 
-    def make(B, Sq, Sk, Hq, Hkv, d):
-        return [torch.randn(shape, generator=g, device=dev).to(bf)
+    def make(B, Sq, Sk, Hq, Hkv, d, dt=bf):
+        return [torch.randn(shape, generator=g, device=dev).to(dt)
                 for shape in ((B, Sq, Hq, d), (B, Sk, Hkv, d),
                               (B, Sk, Hkv, d))]
 
     def run(x, kw, plain=False):
         f = (lambda t: t.float()) if plain else (lambda t: t)
-        return ops.flash_attention(f(x[0]), f(x[1]), f(x[2]), causal=True,
-                                   **kw)
+        return ops.flash_attention(f(x[0]), f(x[1]), f(x[2]),
+                                   **{"causal": True, **kw})
 
     cases = []
     for tag, Hq, Hkv, d in (("opt", 32, 32, 64), ("qwen3", 16, 8, 128),
-                            ("recurrentgemma", 10, 1, 256)):
+                            ("recurrentgemma", 10, 1, 256),
+                            ("qwen2-moe", 16, 16, 128)):
         for S in (128, 512):
             cases.append((f"{tag} S={S} causal", (4, S, S, Hq, Hkv, d), {}))
         cases.append((f"{tag} S=512 window 128", (4, 512, 512, Hq, Hkv, d),
@@ -460,50 +512,78 @@ def check_flash(torch, ops, dev, results):
                           (2, S, S, Hq, Hkv, d), {}))
     cases.append(("recurrentgemma S=700 window 300 ragged",
                   (2, 700, 700, 10, 1, 256), {"window": 300}))
+    # qwen2-moe-a2.7b's prompts prefill one at a time at exact length (9a)
+    for S in (64, 333, 512):
+        cases.append((f"qwen2-moe one prompt S={S}",
+                      (1, S, S, 16, 16, 128), {}))
+    # head dim 80 (hubert-xlarge, non-causal; 9d), also in float32
+    cases += [
+        ("d80 hubert non-causal", (4, 512, 512, 16, 16, 80),
+         {"causal": False}),
+        ("d80 causal ragged", (2, 300, 300, 16, 16, 80), {}),
+        ("d80 non-causal window 128", (2, 700, 700, 16, 16, 80),
+         {"causal": False, "window": 128}),
+        ("d80 GQA 16 on 4, window 64", (2, 300, 300, 16, 4, 80),
+         {"window": 64}),
+        ("d80 GQA 8 on 2, q_offset 512", (2, 100, 612, 8, 2, 80),
+         {"q_offset": 512})]
     worst = 0.0
     for name, spec, kw in cases:
-        x = make(*spec)
-        out = run(x, kw)
-        torch.cuda.synchronize()
-        with ops.plain_versions():
-            ref = run(x, kw, plain=True)
-        err = (out.float() - ref).abs().max().item()
-        print(f"  flash {name}: max|kernel - plain| = {err:.3e}")
-        require(err <= ATTN_TOL, f"flash {name}: {err} > {ATTN_TOL}")
-        worst = max(worst, err)
+        dtypes = [(bf, ATTN_TOL)]
+        if spec[-1] == 80:
+            dtypes.append((torch.float32, FLASH_F32_TOL))
+        for dt, tol in dtypes:
+            x = make(*spec, dt=dt)
+            out = run(x, kw)
+            torch.cuda.synchronize()
+            with ops.plain_versions():
+                ref = run(x, kw, plain=True)
+            err = (out.float() - ref).abs().max().item()
+            tag = "" if dt == bf else " float32"
+            print(f"  flash {name}{tag}: max|kernel - plain| = {err:.3e}")
+            require(err <= tol, f"flash {name}{tag}: {err} > {tol}")
+            if dt == bf:
+                worst = max(worst, err)
 
-    def timed(label, spec):
+    def timed(label, spec, causal=True):
         B, Sq, Sk, Hq, Hkv, d = spec
+        kw = {"causal": causal}
         sets = [make(*spec)
                 for _ in range(n_copies(4 * B * Sq * Hq * d * 2))]
         ms, paced_ms = time_ms(torch, f"flash kernel {label}",
-                               [lambda s=s: run(s, {}) for s in sets], 100)
+                               [lambda s=s: run(s, kw) for s in sets], 100)
         with ops.plain_versions():
             plain_ms, _ = time_ms(torch, f"flash plain {label}",
-                                  [lambda s=s: run(s, {}) for s in sets], 2)
+                                  [lambda s=s: run(s, kw) for s in sets], 2)
         F = torch.nn.functional
         lib_sets = [[t.transpose(1, 2).contiguous() for t in s]
                     for s in sets]
         library_ms, _ = time_ms(torch, f"flash SDPA {label}", [
             lambda a=a: F.scaled_dot_product_attention(
-                a[0], a[1], a[2], is_causal=True, enable_gqa=Hq != Hkv)
+                a[0], a[1], a[2], is_causal=causal, enable_gqa=Hq != Hkv)
             for a in lib_sets], 50)
-        pairs = Sq * (Sq + 1) // 2           # causal (q, k) pairs per head
+        # (q, k) pairs per head
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
         moved = 2 * nbytes(sets[0][0]) + nbytes(sets[0][1], sets[0][2])
         flops = 4 * B * Hq * d * pairs
         b_ms, b_by = bound(moved, flops, "bfloat16")
-        print(f"  flash timed {label} {spec} causal: kernel {ms:.4f} ms "
+        print(f"  flash timed {label} {spec} "
+              f"{'causal' if causal else 'non-causal'}: kernel {ms:.4f} ms "
               f"(host-paced {paced_ms:.4f} ms), plain {plain_ms:.4f} ms, "
               f"SDPA {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         return dict(ms=ms, paced_ms=paced_ms, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
 
-    # opt-1.3b's prefill at bucket 512; recurrentgemma's one 512-token
-    # prompt (its prompts prefill one by one)
+    # opt-1.3b's prefill at bucket 512; recurrentgemma's and qwen2-moe's
+    # one 512-token prompt (their prompts prefill one by one); hubert's
+    # non-causal 4 x 512 frames
     main = timed("opt-1.3b", (4, 512, 512, 32, 32, 64))
     rg = timed("recurrentgemma-2b", (1, 512, 512, 10, 1, 256))
+    moe = timed("qwen2-moe-a2.7b", (1, 512, 512, 16, 16, 128))
+    hb = timed("hubert-xlarge", (4, 512, 512, 16, 16, 80), causal=False)
     results["flash_attention"] = dict(max_abs_err=worst, **main,
-                                      at_recurrentgemma=rg)
+                                      at_recurrentgemma=rg,
+                                      at_qwen2_moe=moe, at_hubert=hb)
 
 
 def check_lora(torch, ops, dev, results):
@@ -826,10 +906,11 @@ def _upcast(tree):
 # phase 5: end to end
 # ---------------------------------------------------------------------------
 
-def end_to_end(torch, ops, arch, adapters, kernels):
+def end_to_end(torch, ops, arch, adapters, kernels, after=None):
     """Serve 8 requests of ``arch`` at full width; ``kernels`` are the
     kernels of its path, each of which must launch (the others must
-    not)."""
+    not).  ``after(result)`` runs on the serve's result once its counts
+    are read."""
     from repro_torch.configs.base import get_arch
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
@@ -873,17 +954,20 @@ def end_to_end(torch, ops, arch, adapters, kernels):
         else:
             require(n == 0, f"{name} launched off the {arch} path")
     by_kind = T.kind_counts(cfg)
-    if "ssm" in by_kind or "rec" in by_kind:
-        # a recurrent state: each prompt prefills alone, once through
-        # every layer
+    if set(by_kind) != {"attn"}:
+        # a recurrent state, or MoE capacity, which couples the rows:
+        # each prompt prefills alone, once through every layer
         n_prefills = int(res.hotpath["n_prefill_calls"])
         want = {"ssd_scan": 8 * by_kind.get("ssm", 0),
                 "rglru_scan": 8 * by_kind.get("rec", 0),
-                "flash_attention": 8 * by_kind.get("attn", 0)}
+                "flash_attention": 8 * (by_kind.get("attn", 0)
+                                        + by_kind.get("moe", 0))}
         require(n_prefills == 8
                 and all(counts[k] == n for k, n in want.items()),
                 f"{n_prefills} prefill calls, launches {counts}, expected "
                 f"{want}")
+    if after is not None:
+        after(res)
     return counts
 
 
@@ -1764,6 +1848,445 @@ def belt_timings(torch, ops, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the remaining model families (MoE, the audio encoder, M-RoPE)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+
+
+def _params_bytes(torch, tree):
+    if isinstance(tree, dict):
+        return sum(_params_bytes(torch, v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def moe_replayed_step(torch, res):
+    """9a's replayed decode step: 4 live requests of 64-512 prompt tokens
+    on the serve run's batcher (its one capture), the median of 20
+    replays on the host clock with the device synchronised, against two
+    weight-read bounds at 3.35 TB/s.  The dropless bound is what the
+    port's dropless decode must read: every block weight (all experts of
+    every layer), the LM head and the live cache rows, each once.  The
+    routed bound is the least a step of these 4 tokens needs: the same
+    without the routed experts that no token of a layer picks, counted
+    from one eager step's routing on a copy of the cache."""
+    import statistics
+    import numpy as np
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServeRequest
+    srv, cfg = res.server, res.cfg
+    b = srv.batcher
+    rng = np.random.default_rng(7)
+    for i, L in enumerate(rng.integers(64, 513, size=4)):
+        srv.submit(ServeRequest(100 + i, rng.integers(0, cfg.vocab_size,
+                                                      size=int(L)),
+                                max_new_tokens=1000))
+    for _ in range(3):
+        srv.step()                        # admissions, replays
+    require(len(b.active) == 4, f"{len(b.active)} live slots, not 4")
+    require(b.compile_stats()["decode_compiles"] == 1,
+            "the timed step is not the serve run's capture")
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b._graph.replay()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    p = b.params
+    mlp = p["blocks"]["moe"]["mlp"]
+    expert_bytes = sum(_params_bytes(torch, mlp[k])
+                       for k in ("w_gate", "w_up", "w_down", "shared"))
+    kv = b.cache["attn"]["k"]
+    live = int(b.cache["pos"].sum().item())
+    kv_bytes = 2 * live * kv.shape[0] * kv.shape[3] * kv.shape[4] \
+        * kv.element_size()
+    moved = (_params_bytes(torch, p["blocks"]) + _params_bytes(
+        torch, p["lm_head"]) + kv_bytes)
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    expert_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
+    # one routed expert of one layer: its gate, up and down weights
+    one_expert = sum(mlp[k][0, 0].numel() * mlp[k].element_size()
+                     for k in ("w_gate", "w_up", "w_down"))
+    with moe.record_routing() as rec:
+        T.decode_step(cfg, p, {"tokens": b._dev_tokens.clone()},
+                      _clone(b.cache))
+    picked = [int(torch.unique(top_e).numel()) for top_e, _ in rec]
+    require(len(picked) == cfg.n_layers, f"{len(picked)} routed layers")
+    routed = moved - sum(cfg.n_experts - n for n in picked) * one_expert
+    routed_ms = routed / HBM_BYTES_PER_S * 1e3
+    print(f"  9a replayed decode step, 4 live slots: {ms:.3f} ms (median of "
+          f"20, min {min(times):.3f}); dropless weight-read bound "
+          f"{bound_ms:.3f} ms ({moved / 1e9:.2f} GB: block weights with "
+          f"all {cfg.n_experts} routed experts of every layer, LM head, "
+          f"{live} cached rows), the experts alone {expert_ms:.3f} ms ("
+          f"{expert_bytes / 1e9:.2f} GB); {100 * bound_ms / ms:.1f}% of "
+          f"the dropless bound")
+    print(f"  9a routed-experts bound {routed_ms:.3f} ms ({routed / 1e9:.2f}"
+          f" GB: the {sum(picked)} distinct routed experts that one step's "
+          f"4 tokens pick over {cfg.n_layers} layers, {min(picked)}-"
+          f"{max(picked)} a layer, plus the shared experts, attention, "
+          f"router, norms, LM head and cached rows); the step is "
+          f"{ms / routed_ms:.2f}x it")
+    return {"replayed_step_ms": ms, "dropless_bound_ms": bound_ms,
+            "routed_bound_ms": routed_ms, "expert_bound_ms": expert_ms,
+            "routed_experts_per_layer": picked}
+
+
+def _routing_alike(torch, rec_a, rec_b):
+    """Share of (token, choice) pairs routed to the same expert, the top k
+    of each token compared as sets (sorted)."""
+    same = total = 0
+    for (ea, _), (eb, _) in zip(rec_a, rec_b):
+        same += int((ea.sort(-1).values == eb.sort(-1).values).sum().item())
+        total += ea.numel()
+    return same / max(total, 1)
+
+
+def _dropped(torch, rec):
+    return sum(int((~keep).sum().item()) for _, keep in rec)
+
+
+def moe_kernels_vs_plain(torch, ops, dev):
+    """9b: qwen2-moe-a2.7b at full width, depth cut to 4 layers, through
+    the kernels and through the plain versions (flash, decode, the LoRA
+    merge of one rank-16 adapter): bf16 (routing agreement and distances
+    printed), float32 (held: logits within 2.5% of max |logit|, the
+    greedy stream equal), and one float32 prefill at capacity factor 0.5
+    whose dropped (token, choice) pairs must be equal."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.lora.adapters import init_lora, merge_lora, \
+        randomize_lora
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    cfg16 = dataclasses.replace(get_arch(MOE_ARCH), n_layers=4)
+    gen = torch.Generator(device=dev).manual_seed(61)
+    params16 = T.init_params(cfg16, gen, device=dev)
+    lora = randomize_lora(gen, init_lora(gen, cfg16, rank=16, device=dev))
+    B, S, N = 4, 192, 8
+    toks = torch.randint(0, cfg16.vocab_size, (B, S), generator=gen,
+                         device=dev)
+    forced = torch.randint(0, cfg16.vocab_size, (N, B), generator=gen,
+                           device=dev)
+
+    def run(cfg, params, steps=None):
+        """Prefill + N decode steps; greedy unless ``steps`` (B,) tokens
+        a step are given.  Returns (logits (N+1, B, V), tokens fed (N,
+        B), routing records)."""
+        merged = merge_lora(params, lora)
+        with moe.record_routing() as rec:
+            lg, cache = T.forward(cfg, merged, {"tokens": toks},
+                                  mode="prefill", max_len=1024)
+            out, fed = [lg], []
+            for i in range(N):
+                tok = (lg.argmax(-1) if steps is None else steps[i]).to(
+                    torch.int32)
+                fed.append(tok)
+                lg, cache = T.decode_step(cfg, merged, {"tokens": tok},
+                                          cache)
+                out.append(lg)
+        return torch.stack(out), torch.stack(fed), rec
+
+    ops.reset_launch_counts()
+    k16, _, rk16 = run(cfg16, params16, forced)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {"flash_attention": 4, "decode_attention": 4 * N,
+            "lora_merge": 4, "ssd_scan": 0, "rglru_scan": 0}
+    require(counts == want, f"9b launches {counts}, expected {want}")
+    with ops.plain_versions():
+        p16, _, rp16 = run(cfg16, params16, forced)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    params32 = _upcast(params16)
+    del params16
+    torch.cuda.empty_cache()
+    with ops.plain_versions():
+        ref32, _, rref = run(cfg32, params32, forced)
+    scale = ref32.abs().max().item()
+    for tag, lg, rec in (("kernel", k16, rk16), ("plain", p16, rp16)):
+        agree = (lg.argmax(-1) == ref32.argmax(-1)).float().mean().item()
+        print(f"  9b {MOE_ARCH} bf16 {tag} run against float32 plain of "
+              f"the same weights: max|diff| = "
+              f"{(lg - ref32).abs().max().item():.3e} (max|logit| "
+              f"{scale:.3f}); greedy agreement {agree:.3f}; (token, choice) "
+              f"pairs routed alike {_routing_alike(torch, rec, rref):.4f}")
+    print(f"  9b bf16 kernel run against bf16 plain run: max|diff| = "
+          f"{(k16 - p16).abs().max().item():.3e}; pairs routed alike "
+          f"{_routing_alike(torch, rk16, rp16):.4f}")
+    del k16, p16, ref32
+    # float32: the kernel run greedy, the plain run fed the kernel run's
+    # tokens, so "streams equal" is each plain step's argmax
+    k32, fed, rk32 = run(cfg32, params32)
+    with ops.plain_versions():
+        p32, _, rp32 = run(cfg32, params32, fed)
+    err = (k32 - p32).abs().max().item()
+    scale = p32.abs().max().item()
+    same = bool(torch.equal(p32[:-1].argmax(-1).to(torch.int32), fed))
+    print(f"  9b {MOE_ARCH} float32 ({cfg32.n_layers} layers, d_model "
+          f"{cfg32.d_model}, {cfg32.n_experts} experts top-{cfg32.top_k} + "
+          f"{cfg32.n_shared_experts} shared, adapter merged): prefill "
+          f"{B} x {S} + {N} greedy steps, max|kernel - plain| = {err:.3e} "
+          f"(max|logit| {scale:.3f}, limit {LOGIT_REL_TOL * scale:.3e}); "
+          f"streams equal {same}; pairs routed alike "
+          f"{_routing_alike(torch, rk32, rp32):.4f}")
+    require(err <= LOGIT_REL_TOL * scale, f"9b float32: {err}")
+    require(same, "9b float32: the greedy streams differ")
+    # a capacity-binding prefill
+    cap = dataclasses.replace(cfg32, capacity_factor=0.5)
+    drops = []
+    for plain in (False, True):
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(ops.plain_versions())
+            rec = stack.enter_context(moe.record_routing())
+            lg, _ = T.forward(cap, params32, {"tokens": toks},
+                              mode="prefill", max_len=1024)
+        drops.append((_dropped(torch, rec), lg))
+    (dk, lk), (dp, lp) = drops
+    C = moe.moe_capacity(B * S, cap)
+    print(f"  9b capacity factor 0.5 (C = {C} slots an expert for "
+          f"{B * S * cap.top_k} pairs over {cap.n_experts} experts): "
+          f"dropped (token, choice) pairs over {cap.n_layers} layers: "
+          f"kernel run {dk}, plain run {dp}; max|logit diff| "
+          f"{(lk - lp).abs().max().item():.3e}")
+    require(dk == dp and dk > 0, f"9b drops: {dk} against {dp}")
+    del params32, k32, p32
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_belt(torch, ops, dev):
+    """9c: qwen2-moe-a2.7b at full width, 8 layers, float32, capacity
+    factor E/K (every expert has a slot for every token, so nothing can
+    drop and every routing equals ``forward``'s): the GPipe belt (4
+    stages on 4 streams of the card, 2 microbatches) against ``forward``
+    over each microbatch's rows, the computation it runs, within 1e-5 of
+    max |x| (logits and cache); the GPipe belt and the sequence-chunk belt
+    (8 chunks) against ``forward`` over the whole batch within the larger
+    of 1e-5 of max |x| and twice the noise floor, the change that
+    splitting the batch alone makes (the expert GEMMs' row counts change
+    their sum order, and the MoE residual stream runs to thousands); then
+    a mid-load belt engine crashes device 1 at decode step 8 and
+    ``recover()``s, its stream equal to an uncrashed single engine's."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.engine import PipeBoostEngine, generate
+    from repro_torch.distributed.pipeline import (
+        build_pipeline_prefill, build_pipeline_prefill_seqchunk)
+    from repro_torch.models import transformer as T
+    full = get_arch(MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=8, dtype="float32",
+                              capacity_factor=full.n_experts / full.top_k)
+    gen = torch.Generator(device=dev).manual_seed(67)
+    params = T.init_params(cfg, gen, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, PIPE_S), generator=gen,
+                         device=dev)
+    want_lg, want = T.forward(cfg, params, {"tokens": toks},
+                              mode="prefill", max_len=1024)
+    mb = toks.shape[0] // PIPE_MICRO
+    split = [T.forward(cfg, params, {"tokens": toks[i:i + mb]},
+                       mode="prefill", max_len=1024)
+             for i in range(0, toks.shape[0], mb)]
+    split_lg = torch.cat([lg for lg, _ in split])
+    split_cache = {"pos": torch.cat([c["pos"] for _, c in split]),
+                   "attn": {leaf: torch.cat([c["attn"][leaf]
+                                             for _, c in split], dim=1)
+                            for leaf in ("k", "v")}}
+    del split
+    floors = ((split_lg - want_lg).abs().max().item(),
+              _leaf_err(torch, split_cache, want)[0])
+    ops.reset_launch_counts()
+    f = build_pipeline_prefill(cfg, n_stages=PIPE_STAGES, n_micro=PIPE_MICRO,
+                               mesh=belt_mesh(dev), seq_len=PIPE_S,
+                               max_len=1024, return_cache=True)
+    lg, cache = f(params, {"tokens": toks})
+    f2 = build_pipeline_prefill_seqchunk(cfg, n_stages=PIPE_STAGES,
+                                         n_chunks=8, mesh=belt_mesh(dev),
+                                         seq_len=PIPE_S)
+    lg2 = f2(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"  9c {MOE_ARCH} float32, {cfg.n_layers} layers, capacity factor "
+          f"{cfg.capacity_factor:g}, B 4, S {PIPE_S}: launches {counts}")
+    require(counts["flash_attention"] == cfg.n_layers * (PIPE_MICRO + 8),
+            f"9c flash launched {counts['flash_attention']} times")
+    scale_lg = want_lg.abs().max().item()
+    print(f"    noise floor (forward over each microbatch's rows against "
+          f"forward over the batch): logits {floors[0]:.3e}, cache "
+          f"{floors[1]:.3e}")
+    for name, (err, scale), want_name, floor in (
+            ("GPipe belt logits", ((lg - split_lg).abs().max().item(),
+                                   scale_lg), "per-microbatch forward", 0.0),
+            ("GPipe belt cache", _leaf_err(torch, cache, split_cache),
+             "per-microbatch forward", 0.0),
+            ("GPipe belt logits", ((lg - want_lg).abs().max().item(),
+                                   scale_lg), "forward", floors[0]),
+            ("GPipe belt cache", _leaf_err(torch, cache, want), "forward",
+             floors[1]),
+            ("sequence-chunk belt logits",
+             ((lg2 - want_lg).abs().max().item(), scale_lg), "forward",
+             floors[0])):
+        limit = max(1e-5 * scale, FLOOR_MULT * floor)
+        print(f"    {name}: max|belt - {want_name}| = {err:.3e} (max "
+              f"{scale:.3f}; limit {limit:.3e})")
+        require(err <= limit, f"9c {name} against {want_name}: {err}")
+    del cache, want, lg, lg2, split_cache, split_lg
+    # a crash on the belt's engine against an uncrashed single engine
+    short = toks[:, :256]
+    ref = PipeBoostEngine(cfg, params, n_devices=4, max_len=1024)
+    while ref.load_round():
+        pass
+    ref.maybe_switch_strategy(1.0)
+    want_toks = generate(ref, {"tokens": short}, PIPE_NEW)
+    del ref
+    eng = PipeBoostEngine(cfg, params, n_devices=4, max_len=1024)
+    require(eng.enable_pipeline_prefill(mesh=belt_mesh(dev),
+                                        n_micro=PIPE_MICRO), "refused")
+    eng.load_round()
+    lost = eng.lost_state_layers([1])
+    before = ops.launch_counts()
+    got = generate(eng, {"tokens": short}, PIPE_NEW, crash_at=RECOVERY_CUT,
+                   crash_devices=[1])
+    torch.cuda.synchronize()
+    crash_counts = _delta(before, ops.launch_counts())
+    stats = [p for e, p in eng.events if e == "recover"][-1]
+    equal = int((got == want_toks).all(dim=1).sum().item())
+    print(f"    crash of device 1 at decode step {RECOVERY_CUT} (belt "
+          f"prefill of 4 x 256): lost layers "
+          f"{[i for i, x in enumerate(lost) if x]}; reconstruct "
+          f"{stats.get('reconstruct')}; {equal} of 4 streams of {PIPE_NEW} "
+          f"equal to an uncrashed single engine's; launches {crash_counts}")
+    require(eng.prefill_backend_used == "pipeline", "9c: prefill ran single")
+    require(equal == 4, "9c: the recovered streams differ")
+    for name, n in crash_counts.items():
+        counts[name] += n
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _model_runs(torch, ops, cfg, params, batches):
+    """The logits of ``batches`` (the first a train-mode or prefill
+    batch, the rest decode steps) through the kernels and through the
+    plain versions."""
+    from repro_torch.models import transformer as T
+
+    def run():
+        if len(batches) == 1:
+            return T.forward(cfg, params, batches[0])[0]
+        lg, cache = T.forward(cfg, params, batches[0], mode="prefill",
+                              max_len=1024)
+        out = [lg]
+        for b in batches[1:]:
+            lg, cache = T.decode_step(cfg, params, b, cache)
+            out.append(lg)
+        return torch.stack(out)
+
+    ops.reset_launch_counts()
+    kern = run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    with ops.plain_versions():
+        plain = run()
+    return kern, plain, counts
+
+
+def hubert(torch, ops, dev):
+    """9d: hubert-xlarge at full width and depth (48 layers, 16 heads of
+    80, non-causal, LayerNorm), ``forward`` from frame embeddings (B 4, S
+    512) in bf16 and float32 through the kernels and the plain versions.
+    Flash alone at head dim 80 is held and timed in phase 3."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import transformer as T
+    cfg16 = get_arch("hubert-xlarge")
+    gen = torch.Generator(device=dev).manual_seed(71)
+    params16 = T.init_params(cfg16, gen, device=dev)
+    emb = torch.randn((4, 512, cfg16.d_model), generator=gen, device=dev)
+    k16, p16, counts = _model_runs(torch, ops, cfg16, params16,
+                                   [{"embeds": emb.to(torch.bfloat16)}])
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    params32 = _upcast(params16)
+    del params16
+    k32, p32, counts32 = _model_runs(torch, ops, cfg32, params32,
+                                     [{"embeds": emb}])
+    for c in (counts, counts32):
+        require(c["flash_attention"] == cfg16.n_layers
+                and sum(c.values()) == cfg16.n_layers,
+                f"9d launches {c}")
+    scale = p32.abs().max().item()
+    err = (k32 - p32).abs().max().item()
+    for tag, lg in (("kernel", k16), ("plain", p16)):
+        print(f"  9d hubert-xlarge bf16 {tag} run against float32 plain of "
+              f"the same weights: max|diff| = "
+              f"{(lg.float() - p32).abs().max().item():.3e}; argmax "
+              f"agreement {(lg.argmax(-1) == p32.argmax(-1)).float().mean().item():.3f}")
+    print(f"  9d hubert-xlarge ({cfg32.n_layers} layers, d_model "
+          f"{cfg32.d_model}, 16 heads of 80, non-causal) float32 from "
+          f"embeddings 4 x 512: max|kernel - plain| = {err:.3e} (max|logit| "
+          f"{scale:.3f}, limit {LOGIT_REL_TOL * scale:.3e}); bf16 "
+          f"{(k16.float() - p16.float()).abs().max().item():.3e}; launches "
+          f"{counts32}")
+    require(err <= LOGIT_REL_TOL * scale, f"9d float32: {err}")
+    del params32, k16, p16, k32, p32
+    torch.cuda.empty_cache()
+    return counts32
+
+
+def qwen2_vl(torch, ops, dev):
+    """9e: qwen2-vl-72b at full width, depth cut to 4 layers, float32: a
+    prefill of 2 x 256 embeddings with (t, h, w) positions that all
+    differ and 8 decode steps of embeddings, through the kernels and the
+    plain versions; logits within 2.5% of max |logit|, every step's
+    argmax equal."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_arch("qwen2-vl-72b"), n_layers=4,
+                              dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(73)
+    params = T.init_params(cfg, gen, device=dev)
+    B, S, N = 2, 256, 8
+
+    def pos(t0, n):
+        t = t0 + torch.arange(n, device=dev)
+        p = torch.stack([t, 2 * t + 1, 3 * t + 2], dim=-1)   # t != h != w
+        return (p[None] + torch.arange(B, device=dev)[:, None, None]).to(
+            torch.int32)
+
+    def emb(n):
+        return torch.randn((B, n, cfg.d_model), generator=gen,
+                           device=dev) * 0.02
+
+    batches = [{"embeds": emb(S), "positions": pos(0, S)}]
+    batches += [{"embeds": emb(1), "positions": pos(S + i, 1)}
+                for i in range(N)]
+    kern, plain, counts = _model_runs(torch, ops, cfg, params, batches)
+    want = {"flash_attention": 4, "decode_attention": 4 * N,
+            "lora_merge": 0, "ssd_scan": 0, "rglru_scan": 0}
+    require(counts == want, f"9e launches {counts}, expected {want}")
+    err = (kern - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    same = bool(torch.equal(kern.argmax(-1), plain.argmax(-1)))
+    print(f"  9e qwen2-vl-72b float32 ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, 64 heads of 128 on 8, M-RoPE sections "
+          f"{cfg.mrope_sections}): prefill {B} x {S} embeddings + {N} "
+          f"decode steps, max|kernel - plain| = {err:.3e} (max|logit| "
+          f"{scale:.3f}, limit {LOGIT_REL_TOL * scale:.3e}); argmax equal "
+          f"every step {same}; launches {counts}")
+    require(err <= LOGIT_REL_TOL * scale, f"9e: {err}")
+    require(same, "9e: the argmax streams differ")
+    del params, kern, plain
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1807,7 +2330,7 @@ def main() -> int:
                  "tensor-core instruction)"))
     flash_tc = {k: v for k, v in instr.items()
                 if k.startswith("flash_bf16_kernel")}
-    require(len(flash_tc) == 3 and all(
+    require(len(flash_tc) == 4 and all(
         any(op.startswith("HGMMA") for op in v) for v in flash_tc.values()),
         f"bf16 flash kernels without HGMMA products: {flash_tc}")
     decode_tc = {k: v for k, v in instr.items()
@@ -1892,6 +2415,23 @@ def main() -> int:
         require(sum(c[name] for c in pipe_parts.values()) > 0,
                 f"phase 8 never launched {name}")
     belt_ms = belt_timings(torch, ops, dev)
+    print("== phase 9: the remaining model families")
+    moe_step = {}
+    family_parts = {
+        "9a_moe_serve": end_to_end(
+            torch, ops, MOE_ARCH, 2,
+            ("decode_attention", "flash_attention", "lora_merge"),
+            after=lambda res: moe_step.update(moe_replayed_step(torch,
+                                                                res))),
+    }
+    torch.cuda.empty_cache()
+    family_parts.update({
+        "9b_moe_kernels": moe_kernels_vs_plain(torch, ops, dev),
+        "9c_moe_belt": moe_belt(torch, ops, dev),
+        "9d_hubert": hubert(torch, ops, dev),
+        "9e_qwen2_vl": qwen2_vl(torch, ops, dev),
+    })
+    serve_counts[MOE_ARCH] = family_parts["9a_moe_serve"]
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     kernels = []
@@ -1920,17 +2460,23 @@ def main() -> int:
                                           for c in pipe_parts.values()),
                  "pipeline_launches_by_part": {
                      part: c[name] for part, c in pipe_parts.items()},
+                 # launches of phase 9's parts (9a, the MoE serve, is
+                 # also in launches_by_arch)
+                 "families_launches_by_part": {
+                     part: c[name] for part, c in family_parts.items()},
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "kernel_ms": r["ms"], "host_paced_ms": r["paced_ms"],
                  "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"]}
-        for extra in ("at_recurrentgemma", "at_s64"):
+        for extra in ("at_recurrentgemma", "at_s64", "at_qwen2_moe",
+                      "at_hubert"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"pipeline_belt_timings": belt_ms}))
+    print(json.dumps({"moe_decode_step": moe_step}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -412,7 +412,8 @@ class PipeBoostEngine:
         single prefill) for fewer than 2 devices, a hybrid layer stack or
         a layer count no stage count divides."""
         kinds = set(self.cfg.layer_kinds())
-        if len(kinds) != 1 or next(iter(kinds)) not in ("attn", "ssm"):
+        if len(kinds) != 1 or next(iter(kinds)) not in ("attn", "moe",
+                                                          "ssm"):
             return False
         L = self.cfg.n_layers
         if mesh is None:

@@ -4,9 +4,10 @@ the port of ``repro/core/kv_reconstruct.py``).
 Given the merged token sequence processed so far (prompt + generated) and
 a per-layer "has state" mask, rebuild the missing per-layer caches:
 
-  * attention layers WITH K/V: only Q is recomputed over the sequence and
-    attends against the surviving cache — exact, since the cached K/V are
-    what a recompute would give.  Causal attention from key 0 over the
+  * attention and MoE layers WITH K/V: only Q is recomputed over the
+    sequence and attends against the surviving cache — exact, since the
+    cached K/V are what a recompute would give; an MoE layer's FFN runs
+    the capacity path over the rebuilt tokens, as its prefill did.  Causal attention from key 0 over the
     cache's first S rows: the flash kernel on the card, reading the cache
     through its strides; on a windowed layer the same kernel with the
     window (its plain version on the CPU is the reference's ring form,
@@ -35,7 +36,6 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2, transformer
-from repro_torch.models.layers import apply_rope, rms_norm
 
 STAT_KEYS = ("layers_recomputed", "kv_reused", "full_prefill",
              "window_recompute", "layers_skipped",
@@ -69,12 +69,11 @@ def reconstruct_cache(cfg: ArchConfig, params, batch: Dict, cache: Dict,
                       ) -> Tuple[Dict, Dict[str, int]]:
     """Rebuild the missing per-layer state of ``cache`` in place.
     ``has_state[i]`` is per *global* layer; ``batch`` carries the merged
-    sequence {"tokens": (B, S)}.  Returns (cache, stats), stats counting
+    sequence {"tokens": (B, S)} or {"embeds": (B, S, D)} (with
+    "positions" for M-RoPE).  Returns (cache, stats), stats counting
     the work done (the reference's keys and values); ``cache["pos"]``
     becomes S.  The rebuilt cache equals a fresh prefill's up to float
-    rounding.  The MoE kind is not ported and raises, as
-    ``transformer.check_supported`` does."""
-    transformer.check_supported(cfg)
+    rounding."""
     kinds = _kind_indices(cfg)
     if len(has_state) != len(kinds):
         raise ValueError(f"has_state has {len(has_state)} entries for "
@@ -90,12 +89,12 @@ def reconstruct_cache(cfg: ArchConfig, params, batch: Dict, cache: Dict,
             stats["layers_skipped"] += len(kinds) - gi
             break
         p = transformer.layer_params(params["blocks"][kind], ki)
-        if kind == "attn":
+        if kind in ("attn", "moe"):
             kc, vc = cache["attn"]["k"][ai], cache["attn"]["v"][ai]
             if has_state[gi] and cfg.attn_window > 0 and S > cap:
                 # wrapped ring: the surviving ring stays (it is exact for
                 # decode); the activations are recomputed for deeper layers
-                x, _ = transformer.attn_layer_fwd(cfg, p, x, positions)
+                x, _, _ = transformer.attn_layer_fwd(cfg, p, x, positions)
                 stats["window_recompute"] += 1
                 stats["prefill_tokens"] += S
             elif has_state[gi]:
@@ -103,8 +102,8 @@ def reconstruct_cache(cfg: ArchConfig, params, batch: Dict, cache: Dict,
                 stats["kv_reused"] += 1
                 stats["q_only_tokens"] += S
             else:
-                x, _ = transformer.attn_layer_fwd(cfg, p, x, positions,
-                                                  kv_write=(kc, vc))
+                x, _, _ = transformer.attn_layer_fwd(cfg, p, x, positions,
+                                                     kv_write=(kc, vc))
                 stats["full_prefill"] += 1
                 stats["prefill_tokens"] += S
         else:
@@ -130,11 +129,10 @@ def reconstruct_cache(cfg: ArchConfig, params, batch: Dict, cache: Dict,
 def _q_only_layer(cfg, p, x, positions, kc, vc):
     """One attention layer whose K/V survived: Q is projected and attends
     the cache's first S rows (K/V projections skipped), then the output
-    projection and the MLP as in ``attn_layer_fwd``."""
-    B, S = x.shape[:2]
-    h = rms_norm(p["ln1"], x, cfg.norm_eps)
-    q = apply_rope(transformer.project_q(cfg, p, h), positions,
-                   cfg.rope_theta)
+    projection and the FFN as in ``attn_layer_fwd``."""
+    S = x.shape[1]
+    h = transformer._apply_norm(cfg, p["ln1"], x)
+    q = transformer.rope(cfg, transformer.project_q(cfg, p, h), positions)
     if cfg.attn_window > 0 and not q.is_cuda:
         o = _windowed_ring_attention(cfg, q, kc, vc, S)
     else:
@@ -142,9 +140,7 @@ def _q_only_layer(cfg, p, x, positions, kc, vc):
         # position j), the flash kernel reading the cache's strides
         o = attn_lib.attention(q, kc[:, :S], vc[:, :S], causal=True,
                                window=cfg.attn_window)
-    x = x + o.reshape(B, S, -1) @ p["wo"]
-    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-    return x + transformer._apply_mlp(cfg, p["mlp"], h2)
+    return transformer.attn_out_ffn(cfg, p, x, o)[0]
 
 
 def _windowed_ring_attention(cfg, q, kc, vc, S):

@@ -21,8 +21,12 @@ reference's compute on a zeros belt is an SPMD artefact whose results it
 discards).
 
 The layers are the model's own (``transformer.attn_layer_fwd``,
-``mamba2.ssm_block_fwd``), so every attention stage runs the flash kernel
-and every SSM stage the SSD scan on the card.  With ``return_cache=True``
+``mamba2.ssm_block_fwd``), so every attention or MoE stage runs the flash
+kernel and every SSM stage the SSD scan on the card.  An MoE layer routes
+the tokens of the block it is given: each microbatch (GPipe) or chunk
+(sequence-chunk belt) has its own routing and capacity, exactly as the
+reference's belts compute them, so where capacity binds the belt's result
+differs from ``forward``'s over the whole batch.  With ``return_cache=True``
 each stage writes its layers' state straight into a cache of
 ``transformer.init_cache``'s layout, at its layer range and the
 microbatch's rows: the same keys, shapes and dtypes as
@@ -43,7 +47,6 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2, transformer
-from repro_torch.models.layers import apply_rope, rms_norm
 
 Lane = Tuple[int, int]          # (data row, stage)
 
@@ -201,8 +204,21 @@ def _head(cfg: ArchConfig, params, x_last: torch.Tensor) -> torch.Tensor:
     head = {"embed": params["embed"].to(dev)}
     if not cfg.tie_embeddings:
         head["lm_head"] = params["lm_head"].to(dev)
-    xl = rms_norm(params["final_norm"].to(dev), x_last, cfg.norm_eps)
+    xl = transformer._apply_norm(cfg, _to(params["final_norm"], dev), x_last)
     return transformer.unembed(cfg, head, xl)[:, 0]
+
+
+def _inputs(batch) -> torch.Tensor:
+    """The batch's (B, S) tokens, or its (B, S, D) embeddings."""
+    return batch["embeds"] if "embeds" in batch else batch["tokens"]
+
+
+def _stage0_input(batch, embed0, rows, cols, dev):
+    """Stage 0's block: rows ``rows`` and positions ``cols`` of the batch,
+    embedded (tokens) or as given (embeds), on ``dev``."""
+    if "embeds" in batch:
+        return batch["embeds"][rows, cols].to(dev)
+    return embed0[batch["tokens"][rows, cols].to(dev)]
 
 
 def _check_grid(cfg: ArchConfig, mesh: StageMesh, n_stages: int,
@@ -226,29 +242,34 @@ def build_pipeline_prefill(cfg: ArchConfig, *, n_stages: int, n_micro: int,
     """Returns f(params, batch) -> last-token logits (B, V) float32, or
     with ``return_cache=True`` (logits, cache).
 
-    batch: {"tokens": (B, S)} and optionally {"last_index": (B,)}: per-row
-    true last prompt token of right-padded prompts; logits are gathered
-    there and ``cache["pos"]`` is ``last_index + 1`` (else S), as
-    ``transformer.forward(last_index=...)`` does (attention-only).
+    batch: {"tokens": (B, S)} or {"embeds": (B, S, D)}, and optionally
+    {"last_index": (B,)}: per-row true last prompt token of right-padded
+    prompts; logits are gathered there and ``cache["pos"]`` is
+    ``last_index + 1`` (else S), as ``transformer.forward(last_index=...)``
+    does (attention-only).  M-RoPE models are refused: this belt has no
+    (t, h, w) position stream (the reference's passes (B, S) positions to
+    M-RoPE and fails).
 
     B splits over the mesh's data rows (row d takes rows [d B/n_data,
     (d+1) B/n_data)) and each row's share into ``n_micro`` microbatches.
     The cache is ``transformer.init_cache``'s, attention K/V sized to
     ``attn_cache_capacity(cfg, max_len)`` (ring-rolled when windowed), on
-    the tokens' device."""
+    the inputs' device."""
     kind = _uniform_kind(cfg)
-    if kind not in ("attn", "ssm"):
+    if kind not in ("attn", "moe", "ssm"):
         raise ValueError(f"pipeline belt: layer kind {kind!r}")
+    if cfg.mrope:
+        raise ValueError(f"{cfg.name}: the GPipe belt has no M-RoPE "
+                         f"position stream")
 
     def f(params, batch):
-        tokens = batch["tokens"]
         last_index = batch.get("last_index")
-        B, S = tokens.shape
+        B, S = _inputs(batch).shape[:2]
         _check_grid(cfg, mesh, n_stages, B, S, seq_len, n_micro)
         n_data = mesh.shape["data"]
         Bl = B // n_data
         mb = Bl // n_micro
-        out_dev = tokens.device
+        out_dev = _inputs(batch).device
         dtype = params["embed"].dtype
         logits = torch.empty((B, cfg.padded_vocab), dtype=torch.float32,
                              device=out_dev)
@@ -274,8 +295,8 @@ def build_pipeline_prefill(cfg: ArchConfig, *, n_stages: int, n_micro: int,
             d, s = lane
             dev = lanes.device(lane)
             rows = slice(d * Bl + m * mb, d * Bl + (m + 1) * mb)
-            x = (embed0[d][tokens[rows].to(dev)] if s == 0
-                 else recv[lane])
+            x = (_stage0_input(batch, embed0[d], rows, slice(None), dev)
+                 if s == 0 else recv[lane])
             for j, p in enumerate(layers[lane]):
                 i = s * per + j
                 if kind == "ssm":
@@ -284,8 +305,8 @@ def build_pipeline_prefill(cfg: ArchConfig, *, n_stages: int, n_micro: int,
                         for leaf, st in zip(cache["ssm"], states):
                             cache["ssm"][leaf][i, rows].copy_(st)
                 else:
-                    x, kv = transformer.attn_layer_fwd(cfg, p, x,
-                                                       positions[lane])
+                    x, kv, _ = transformer.attn_layer_fwd(cfg, p, x,
+                                                          positions[lane])
                     if cache is not None:   # into the zeroed cache
                         for leaf, t in zip(("k", "v"), kv):
                             dst = cache["attn"][leaf][i, rows]
@@ -341,22 +362,20 @@ def _run_belt(lanes: _Lanes, mesh: StageMesh, n_micro: int, n_stages: int,
 
 def _attn_layer_chunk(cfg: ArchConfig, p, x, positions, k_buf, v_buf,
                       q_off: int):
-    """One attention layer over a chunk of queries at ``q_off``: its roped
-    K/V land in the layer's (B, S, Hkv, hd) buffers at [q_off, q_off +
-    chunk), and the chunk attends causally to [0, q_off + chunk) of them
-    (the flash kernel with ``q_offset``, Sk > Sq)."""
-    B, chunk, _ = x.shape
-    end = q_off + chunk
-    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    """One attention (or MoE) layer over a chunk of queries at ``q_off``:
+    its roped K/V land in the layer's (B, S, Hkv, hd) buffers at [q_off,
+    q_off + chunk), and the chunk attends causally to [0, q_off + chunk)
+    of them (the flash kernel with ``q_offset``, Sk > Sq).  An MoE FFN
+    routes the chunk's tokens with the chunk's capacity."""
+    end = q_off + x.shape[1]
+    h = transformer._apply_norm(cfg, p["ln1"], x)
     q, k, v = transformer._project_qkv(cfg, p, h)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k_buf[:, q_off:end] = apply_rope(k, positions, cfg.rope_theta)
+    q = transformer.rope(cfg, q, positions)
+    k_buf[:, q_off:end] = transformer.rope(cfg, k, positions)
     v_buf[:, q_off:end] = v
     o = attn_lib.attention(q, k_buf[:, :end], v_buf[:, :end], causal=True,
                            window=cfg.attn_window, q_offset=q_off)
-    x = x + o.reshape(B, chunk, -1) @ p["wo"]
-    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-    return x + transformer._apply_mlp(cfg, p["mlp"], h2)
+    return transformer.attn_out_ffn(cfg, p, x, o)[0]
 
 
 def build_pipeline_prefill_seqchunk(cfg: ArchConfig, *, n_stages: int,
@@ -366,10 +385,12 @@ def build_pipeline_prefill_seqchunk(cfg: ArchConfig, *, n_stages: int,
     SEQUENCE CHUNKS of the same requests, not batch splits, so a batch of
     one still fills the belt.  Each stage keeps the K/V of its layers for
     the chunks it has seen and each chunk attends causally over them; the
-    belt carries one (B/n_data, chunk, D) block a tick.  Attention-only.
-    Returns f(params, {"tokens": (B, S)}) -> last-token logits (B, V)."""
+    belt carries one (B/n_data, chunk, D) block a tick.  Attention and MoE
+    stacks.  Returns f(params, {"tokens": (B, S)} or {"embeds": (B, S,
+    D)}) -> last-token logits (B, V).  An M-RoPE model gets the
+    reference's text-like stub stream: t = h = w = the position."""
     kind = _uniform_kind(cfg)
-    if kind != "attn":
+    if kind not in ("attn", "moe"):
         raise ValueError("seq-chunk pipeline needs attention KV semantics")
     if seq_len % n_chunks:
         raise ValueError(f"{seq_len=} does not split into {n_chunks} chunks")
@@ -377,11 +398,10 @@ def build_pipeline_prefill_seqchunk(cfg: ArchConfig, *, n_stages: int,
     hd = cfg.resolved_head_dim
 
     def f(params, batch):
-        tokens = batch["tokens"]
-        B, S = tokens.shape
+        B, S = _inputs(batch).shape[:2]
         _check_grid(cfg, mesh, n_stages, B, S, seq_len, 1)
         Bl = B // mesh.shape["data"]
-        out_dev = tokens.device
+        out_dev = _inputs(batch).device
         dtype = params["embed"].dtype
         logits = torch.empty((B, cfg.padded_vocab), dtype=torch.float32,
                              device=out_dev)
@@ -408,7 +428,10 @@ def build_pipeline_prefill_seqchunk(cfg: ArchConfig, *, n_stages: int,
             q_off = c * chunk
             positions = (q_off + torch.arange(chunk, device=dev))[
                 None, :].expand(Bl, chunk)
-            x = (embed0[d][tokens[rows, q_off:q_off + chunk].to(dev)]
+            if cfg.mrope:       # the text-like stub stream: t = h = w
+                positions = positions[..., None].expand(Bl, chunk, 3)
+            x = (_stage0_input(batch, embed0[d], rows,
+                               slice(q_off, q_off + chunk), dev)
                  if s == 0 else recv[lane])
             for j, p in enumerate(layers[lane]):
                 x = _attn_layer_chunk(cfg, p, x, positions, kv[lane][j, 0],

@@ -7,7 +7,7 @@
 // valid key writes zeros.
 //
 // Bound on the H100: at the prefill shapes of the serving path (Sq = Sk <=
-// 1024, hd 64, 128 or 256) the bytes of q, k, v and out and the bf16
+// 1024, hd 64, 80, 128 or 256) the bytes of q, k, v and out and the bf16
 // tensor-core time are of one order (a few microseconds), so the products
 // must run on the tensor cores and the loads must overlap them.
 //
@@ -30,9 +30,13 @@
 // one SM walking every key.  The output tile is staged in the Q tile's
 // shared memory and written with 16-byte stores.
 //
+// Head dim 80 (hubert-xlarge, non-causal) runs the hd 128 tiles with
+// columns 80..127 zero-filled by the copies: its S products take the 5
+// real 16-dim steps, its PV products run 128 wide and drop 48 columns.
+//
 // float32 (not on the serving path; the tests hold it to 2e-5, which TF32
 // cannot give): the products stay on the CUDA cores in full float32.  TPR
-// threads share a query row (two at hd 64 and 128, four at hd 256) and
+// threads share a query row (two at hd 64, 80 and 128, four at hd 256) and
 // each keeps hd / TPR dimensions of q * scale and of the accumulator in
 // registers; K/V tiles of at least 16 keys are staged in shared memory and
 // read as broadcasts.
@@ -76,7 +80,8 @@ flash_attention_kernel(const FlashArgs a) {
   constexpr int PART = HD / TPR;                       // dims per thread
   constexpr int VEC = 16 / sizeof(T);                  // elements per 16 B
   constexpr int BK8K = 8192 / (HD * (int)sizeof(T));  // keys in 8 KB
-  constexpr int BK = BK8K > kChunk ? BK8K : kChunk;    // keys per tile
+  // keys per tile: whole chunks of 8 KB at most, at least one chunk
+  constexpr int BK = BK8K > kChunk ? BK8K / kChunk * kChunk : kChunk;
   static_assert(BK % kChunk == 0, "tile must hold whole chunks");
   constexpr int TILE_VECS = BK * HD * (int)sizeof(T) / 16;
   __shared__ uint4 ks_raw[TILE_VECS];      // raw 16-byte storage, viewed
@@ -207,6 +212,9 @@ cudaError_t launch_f32(const FlashArgs& a, int B, int Hq, int hd,
   if (hd == 64)
     flash_attention_kernel<float, 64><<<grid, kBQ * threads_per_row(64), 0,
                                         stream>>>(a);
+  else if (hd == 80)
+    flash_attention_kernel<float, 80><<<grid, kBQ * threads_per_row(80), 0,
+                                        stream>>>(a);
   else if (hd == 128)
     flash_attention_kernel<float, 128><<<grid, kBQ * threads_per_row(128),
                                          0, stream>>>(a);
@@ -241,9 +249,10 @@ struct TcTile {
   static_assert(NS > NWG, "a tile in flight beyond those multiplied");
 };
 
-// cp.async rows r0 .. r0 + ROWS - 1 of a (n x HD) strided bf16 matrix into
-// an SW128 tile at dst; rows at or past n are zeros
-template <int ROWS, int HD, int THREADS>
+// cp.async rows r0 .. r0 + ROWS - 1 of a (n x HDR) strided bf16 matrix
+// into an SW128 tile of HD columns at dst; rows at or past n and columns
+// at or past HDR (the zero padding of head dim 80 to 128) are zeros
+template <int ROWS, int HD, int THREADS, int HDR = HD>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           long long stride, int r0, int n,
                                           int tid) {
@@ -253,9 +262,10 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
   for (int it = 0; it < ROWS * CPR / THREADS; ++it) {
     const int i = it * THREADS + tid, r = i / CPR, c = i % CPR;
     const int row = r0 + r;
-    const bool ok = row < n;
+    const bool ok = row < n && c < HDR / 8;
     cp_async16(dst + sw128(r, c, ROWS),
-               src + (long long)(ok ? row : 0) * stride + c * 8, ok);
+               src + (long long)(ok ? row : 0) * stride + (ok ? c * 8 : 0),
+               ok);
   }
 }
 
@@ -277,10 +287,16 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
   else wgmma_rs_m64n256k16(o, p, db, 1);
 }
 
-template <int HD>
+// HD: the tile width the products run at; HDR: the head dim in memory.
+// HDR = 80 runs in HD = 128 tiles whose columns 80..127 are zeros in
+// shared memory: S = Q K^T takes only the 5 real 16-dim steps, and
+// O += P V runs n = 128 and drops the 48 zero columns of O (1.6x the PV
+// products).
+template <int HD, int HDR = HD>
 __global__ void __launch_bounds__(TcTile<HD>::THREADS, 1)
 flash_bf16_kernel(const FlashArgs a) {
   using SM = TcTile<HD>;
+  static_assert(HDR % 16 == 0 && HDR <= HD, "whole 16-dim steps");
   constexpr int kBK = SM::BK, NWG = SM::NWG, THREADS = SM::THREADS;
   static_assert(kBQ == 64, "one wgmma M of 64");
   extern __shared__ uint8_t smem_raw[];
@@ -318,14 +334,15 @@ flash_bf16_kernel(const FlashArgs a) {
   auto issue = [&](int j) {
     if (j < n_tiles) {
       const uint32_t sK = sKV + (j % SM::NS) * 2 * SM::KV;
-      load_tile<kBK, HD, THREADS>(sK, kg, a.k_ss, k_begin + j * kBK, a.Sk,
-                                  tid);
-      load_tile<kBK, HD, THREADS>(sK + SM::KV, vg, a.v_ss, k_begin + j * kBK,
-                                  a.Sk, tid);
+      load_tile<kBK, HD, THREADS, HDR>(sK, kg, a.k_ss, k_begin + j * kBK,
+                                       a.Sk, tid);
+      load_tile<kBK, HD, THREADS, HDR>(sK + SM::KV, vg, a.v_ss,
+                                       k_begin + j * kBK, a.Sk, tid);
     }
     cp_async_commit();
   };
-  load_tile<kBQ, HD, THREADS>(sQ, qg, a.q_ss, q0, a.Sq, tid);  // tile 0's group
+  load_tile<kBQ, HD, THREADS, HDR>(sQ, qg, a.q_ss, q0, a.Sq,
+                                   tid);                 // tile 0's group
 #pragma unroll
   for (int j = 0; j < SM::NS - NWG; ++j) issue(j);
 
@@ -358,11 +375,11 @@ flash_bf16_kernel(const FlashArgs a) {
       const int k0 = k_begin + t * kBK;
       const uint32_t sK = sKV + (t % SM::NS) * 2 * SM::KV, sV = sK + SM::KV;
 
-      // S = Q K^T: K-major A and B, 16 dims a step
+      // S = Q K^T: K-major A and B, 16 dims a step (the real ones)
       fence_regs(s);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < HDR / 16; ++kk) {
         const uint32_t off = (kk & 3) * 32;         // 64-dim blocks: kk / 4
         wgmma_qk<kBK>(s,
                       sw128_desc(sQ + (kk >> 2) * kBQ * 128 + off, 16, 1024),
@@ -506,28 +523,30 @@ flash_bf16_kernel(const FlashArgs a) {
 #pragma unroll
   for (int it = 0; it < kBQ * CPR / THREADS; ++it) {
     const int i = it * THREADS + tid, r = i / CPR, c = i % CPR;
-    if (q0 + r < a.Sq)
+    if (q0 + r < a.Sq && c < HDR / 8)
       *reinterpret_cast<uint4*>(og + (long long)(q0 + r) * a.o_ss + c * 8) =
           *reinterpret_cast<const uint4*>(q_tile + sw128(r, c, kBQ));
   }
 }
 
-template <int HD>
+template <int HD, int HDR = HD>
 cudaError_t launch_bf16_hd(const FlashArgs& a, int B, int Hq,
                            cudaStream_t stream) {
   constexpr int bytes = TcTile<HD>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_bf16_kernel<HD, HDR>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(Hq, B, (a.Sq + kBQ - 1) / kBQ);
-  flash_bf16_kernel<HD><<<grid, TcTile<HD>::THREADS, bytes, stream>>>(a);
+  flash_bf16_kernel<HD, HDR><<<grid, TcTile<HD>::THREADS, bytes, stream>>>(
+      a);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bf16(const FlashArgs& a, int B, int Hq, int hd,
                         cudaStream_t stream) {
   if (hd == 64) return launch_bf16_hd<64>(a, B, Hq, stream);
+  if (hd == 80) return launch_bf16_hd<128, 80>(a, B, Hq, stream);
   if (hd == 128) return launch_bf16_hd<128>(a, B, Hq, stream);
   if (hd == 256) return launch_bf16_hd<256>(a, B, Hq, stream);
   return cudaErrorInvalidValue;

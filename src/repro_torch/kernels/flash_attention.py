@@ -12,7 +12,9 @@ products on the tensor cores: one warpgroup owns a 64-row query tile, S =
 Q K^T and O += P V are ``wgmma`` instructions (P from registers, rounded
 to bf16), and K/V tiles of 64 keys (32 at head dim 256) stream through a
 ring of 3-4 stages in shared memory filled by ``cp.async`` while earlier
-tiles are multiplied; query tiles run longest first.  The float32 path keeps the
+tiles are multiplied; query tiles run longest first.  Head dim 80 (the
+non-causal hubert-xlarge encoder) runs in the head dim 128 tiles with the
+columns past 80 zero-filled in shared memory.  The float32 path keeps the
 products on the CUDA cores in full float32 (two or four threads a query
 row).  Both mask ragged edges in the kernel (no padding copies) and never
 load a key tile that the causal mask or the window hides from its whole
@@ -35,7 +37,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:102"
-HEAD_DIMS = (64, 128, 256)     # the kernel's template head dims
+HEAD_DIMS = (64, 80, 128, 256)  # the kernel's head dims (80 in 128 tiles)
 
 launches = 0          # kernel launches since the last reset
 

@@ -8,6 +8,8 @@ merged-LoRA adapter epochs (the port of the single-server path of
         --arch mamba2-780m --requests 8 --adapters 0
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-2b --requests 8 --adapters 0
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen2-moe-a2.7b --requests 8 --adapters 2
 
 runs on the card at the architecture's full published width, with random
 weights made from ``--seed``.  ``--device cpu`` runs on the CPU with the
@@ -22,7 +24,10 @@ zero-copy decode through the decode kernel; mamba2: each prompt prefilled
 alone at its exact length through the SSD scan kernel, recurrent decode;
 recurrentgemma: each prompt prefilled alone at its exact length through
 the RG-LRU scan kernel and the flash kernel at head dim 256, decode
-through the decode kernel and the elementwise recurrent step) with
+through the decode kernel and the elementwise recurrent step; MoE models:
+each prompt prefilled alone at its exact length, since capacity couples
+the rows, the experts on the capacity path, decode through the decode
+kernel and the dropless experts) with
 ``--adapters`` rank-16 adapters merged by the LoRA-merge kernel (an
 attention-free model's adapters are empty and merge as the identity).
 It prints ``cold_start_stats()``, the wall time to first token of each
@@ -85,6 +90,7 @@ class ServeResult:
     decode_tokens_per_s: float
     peak_memory_bytes: Optional[int]
     crash: Optional[Dict[str, object]] = None   # --crash-at's record
+    server: Optional[ServingEngine] = None      # the engine that served
 
 
 @dataclass
@@ -109,6 +115,21 @@ def serving_config(arch: str, device: str, n_devices: int) -> ArchConfig:
     return cfg
 
 
+def check_servable(cfg: ArchConfig) -> None:
+    """Exit with a message for the models the serve loop cannot take: an
+    encoder-only model has no decode step, and an M-RoPE model needs (B,
+    S, 3) (t, h, w) positions from its stubbed vision frontend where the
+    loop sends token positions (the reference's loop fails on it with a
+    broadcasting error).  Both run at the model level: ``forward`` from
+    embeddings, and for M-RoPE ``decode_step`` with (B, 1, 3) positions."""
+    if not cfg.has_decode:
+        raise SystemExit(f"{cfg.name} is encoder-only; no serve loop")
+    if cfg.mrope:
+        raise SystemExit(f"{cfg.name} takes (t, h, w) M-RoPE positions "
+                         f"from its vision frontend (a stub); the serve "
+                         f"loop sends token positions and cannot serve it")
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -117,8 +138,7 @@ def _sync(device: torch.device) -> None:
 def run(args) -> ServeResult:
     device = torch.device(args.device)
     cfg = serving_config(args.arch, args.device, args.devices)
-    if not cfg.has_decode:
-        raise SystemExit(f"{cfg.name} is encoder-only; no serve loop")
+    check_servable(cfg)
     lo, hi = (int(x) for x in args.prompt_len.split("-"))
     if not 1 <= lo <= hi or hi + args.new_tokens > args.max_len:
         raise SystemExit(f"--prompt-len {args.prompt_len} plus "
@@ -189,7 +209,8 @@ def run(args) -> ServeResult:
     return ServeResult(cfg, reqs, ttft, cold, hot,
                        srv.n_adapter_switches, wall,
                        decode_tokens / hot["decode_time_s"]
-                       if hot["decode_time_s"] > 0 else 0.0, peak, crash)
+                       if hot["decode_time_s"] > 0 else 0.0, peak, crash,
+                       srv)
 
 
 def merged_adapters(cfg: ArchConfig, params, n: int,
@@ -216,8 +237,7 @@ def run_cluster(args) -> ClusterResult:
     if n_dev != args.devices:
         print(f"capping --devices {args.devices} -> {n_dev} per server")
     cfg = serving_config(args.arch, args.device, n_dev)
-    if not cfg.has_decode:
-        raise SystemExit(f"{cfg.name} is encoder-only; no serve loop")
+    check_servable(cfg)
     lo, hi = (int(x) for x in args.prompt_len.split("-"))
     if not 1 <= lo <= hi or hi + args.new_tokens > args.max_len:
         raise SystemExit(f"--prompt-len {args.prompt_len} plus "

@@ -2,7 +2,7 @@
 ``repro/lora/adapters.py``).
 
 Adapters target the attention projections (wq, wk, wv, wo) of every
-attention layer, the paper's merged-LoRA serving path (§4.3.2):
+attention-bearing (``attn`` or ``moe``) layer, the paper's merged-LoRA serving path (§4.3.2):
 ``W' = W + (alpha/r) * A @ B``.  Merging and unmerging are inverses up to
 float accumulation and the rounding of W's dtype.  Both run through the
 LoRA-merge kernel for CUDA tensors and its plain version for CPU tensors
@@ -49,15 +49,21 @@ def _attn_dims(cfg: ArchConfig) -> Dict[str, Tuple[int, int]]:
 def init_lora(gen: torch.Generator, cfg: ArchConfig, rank: int, *,
               alpha: float = None, name: str = "adapter",
               dtype=torch.float32, device="cuda") -> LoRAAdapter:
-    """A ~ truncated N(0, 1/d_in), B = 0 (standard LoRA init)."""
+    """A ~ truncated N(0, 1/d_in), B = 0 (standard LoRA init), for the
+    attention projections of every ``attn`` and ``moe`` layer, under the
+    kind's own stack (``blocks["attn"]``, ``blocks["moe"]``)."""
     alpha = alpha if alpha is not None else 2.0 * rank
-    L = sum(1 for k in cfg.layer_kinds() if k == "attn")
-    tgt = {}
-    for t, (din, dout) in _attn_dims(cfg).items():
-        tgt[t] = {"A": dense_init(gen, (L, din, rank), dtype, device),
-                  "B": torch.zeros((L, rank, dout), dtype=dtype,
-                                   device=device)}
-    return LoRAAdapter(name, rank, alpha, {"attn": tgt} if L else {})
+    blocks = {}
+    for kind in ("attn", "moe"):
+        L = sum(1 for k in cfg.layer_kinds() if k == kind)
+        if not L:
+            continue
+        blocks[kind] = {
+            t: {"A": dense_init(gen, (L, din, rank), dtype, device),
+                "B": torch.zeros((L, rank, dout), dtype=dtype,
+                                 device=device)}
+            for t, (din, dout) in _attn_dims(cfg).items()}
+    return LoRAAdapter(name, rank, alpha, blocks)
 
 
 def randomize_lora(gen: torch.Generator, adapter: LoRAAdapter) -> LoRAAdapter:

@@ -1,5 +1,5 @@
-"""Core layers: norms, rotary embeddings, MLPs, the causal depthwise conv
-(the port of ``repro/models/layers.py``).
+"""Core layers: norms, rotary embeddings (RoPE and M-RoPE), MLPs, the causal
+depthwise conv (the port of ``repro/models/layers.py``).
 
 Parameters are plain dicts of tensors; every layer is a function
 ``f(params, x, ...)``.  Initializers take an explicit ``torch.Generator``.
@@ -28,7 +28,7 @@ def dense_init(gen: torch.Generator, shape, dtype, device,
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)        # in place: one float32 copy at most
 
 
 def embed_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
@@ -57,7 +57,7 @@ def layer_norm(params, x, eps: float = 1e-5):
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings
+# Rotary position embeddings (RoPE / M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -75,6 +75,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     inv = rope_freqs(hd, theta, x.device)
     ang = positions[..., None].float() * inv          # (..., S, hd/2)
     cos = torch.cos(ang)[..., None, :]                # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the rotary half-dims are split into
+    (t, h, w) sections, each rotated by its own position stream.
+
+    x: (B, S, H, hd); positions: (B, S, 3) int — per-token (t, h, w) ids
+    (text tokens carry t = h = w)."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim/2 = {hd // 2}")
+    if positions.dim() != 3 or positions.shape[-1] != 3:
+        raise ValueError(f"mrope needs (B, S, 3) (t, h, w) positions, got "
+                         f"{tuple(positions.shape)}")
+    inv = rope_freqs(hd, theta, x.device)             # (hd/2,)
+    # the position stream of every rotary frequency slot
+    sec_id = torch.cat([torch.full((s,), i, dtype=torch.long,
+                                   device=x.device)
+                        for i, s in enumerate(sections)])
+    ang = positions.float()[..., sec_id] * inv        # (B, S, hd/2)
+    cos = torch.cos(ang)[..., None, :]                # (B, S, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

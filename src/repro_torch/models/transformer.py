@@ -1,6 +1,7 @@
-"""Model assembly for the dense/GQA decoder, the Mamba-2 SSM stack and the
-RG-LRU + local-attention hybrid (the port of
-``repro/models/transformer.py``: attention, SSM and recurrent layers).
+"""Model assembly for every family of the config pool: the dense/GQA
+decoder, the MoE decoder, the Mamba-2 SSM stack, the RG-LRU +
+local-attention hybrid, the encoder-only audio backbone and the M-RoPE
+vision-language backbone (the port of ``repro/models/transformer.py``).
 
 Parameters keep the reference's layout: per-layer weights stacked on a
 leading layer axis per layer kind, ``params["blocks"][kind][name]`` of
@@ -27,8 +28,13 @@ advanced in place.  The cache passed in is updated in place — the analogue
 of the reference's donated cache — and returned, so a CUDA graph captured
 over the step goes on reading and writing the same storage.
 
-The MoE layer kind, M-RoPE and the audio family are not ported yet and
-raise ``NotImplementedError``.
+MoE layers (``moe``) are attention layers whose FFN is ``moe.moe_mlp``:
+the capacity path in full-sequence forwards, the dropless path in decode;
+they fill the ``attn`` cache stack with the attention layers, in layer
+order.  The audio family normalises with LayerNorm (``{scale, bias}``
+leaves), attends non-causally and has no decode step.  M-RoPE models take
+``(B, S, 3)`` (t, h, w) positions, and every model may take ``embeds``
+(B, S, D) in place of tokens (the stubbed audio and vision frontends).
 """
 from __future__ import annotations
 
@@ -38,9 +44,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import mamba2, rglru
-from repro_torch.models.layers import (_ACTS, apply_rope, dense_init,
-                                       embed_init, rms_norm)
+from repro_torch.models import mamba2, moe, rglru
+from repro_torch.models.layers import (_ACTS, apply_mrope, apply_rope,
+                                       dense_init, embed_init, layer_norm,
+                                       rms_norm)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -51,18 +58,6 @@ _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
     return _TORCH_DTYPES[cfg.dtype]
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """The port runs dense/GQA attention decoders, all-SSM models and
-    RG-LRU + attention hybrids (so far)."""
-    kinds = set(cfg.layer_kinds())
-    if kinds not in ({"attn"}, {"ssm"}, {"attn", "rec"}) or cfg.mrope \
-            or cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)}, mrope={cfg.mrope}, "
-            f"family={cfg.family} — only dense/GQA attention, all-SSM and "
-            f"RG-LRU hybrid models are ported")
 
 
 def kind_counts(cfg: ArchConfig) -> Dict[str, int]:
@@ -76,8 +71,27 @@ def kind_counts(cfg: ArchConfig) -> Dict[str, int]:
 # Init
 # ---------------------------------------------------------------------------
 
+def _norm_init(cfg: ArchConfig, L: int, dtype, device):
+    """Stacked pre-norm weights: LayerNorm ``{scale, bias}`` for the audio
+    family, an RMSNorm scale otherwise (``L`` None: one unstacked norm)."""
+    shape = (cfg.d_model,) if L is None else (L, cfg.d_model)
+    ones = torch.ones(shape, dtype=dtype, device=device)
+    if cfg.family == "audio":
+        return {"scale": ones,
+                "bias": torch.zeros(shape, dtype=dtype, device=device)}
+    return ones
+
+
+def _apply_norm(cfg: ArchConfig, w, x):
+    if cfg.family == "audio":
+        return layer_norm(w, x, cfg.norm_eps)
+    return rms_norm(w, x, cfg.norm_eps)
+
+
 def _init_attn_layers(gen: torch.Generator, cfg: ArchConfig, L: int,
-                      dtype, device) -> Params:
+                      dtype, device, mlp_init=None) -> Params:
+    """Attention layers; ``mlp_init`` makes their FFN (the dense MLP by
+    default, the MoE FFN for ``moe`` layers)."""
     D, hd = cfg.d_model, cfg.resolved_head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
 
@@ -91,10 +105,10 @@ def _init_attn_layers(gen: torch.Generator, cfg: ArchConfig, L: int,
         return torch.zeros(shape, dtype=dtype, device=device)
 
     blk: Params = {
-        "ln1": ones(L, D), "wq": dense(L, D, Hq * hd),
+        "ln1": _norm_init(cfg, L, dtype, device), "wq": dense(L, D, Hq * hd),
         "wk": dense(L, D, Hkv * hd), "wv": dense(L, D, Hkv * hd),
-        "wo": dense(L, Hq * hd, D), "ln2": ones(L, D),
-        "mlp": _init_mlp(gen, cfg, L, dtype, device),
+        "wo": dense(L, Hq * hd, D), "ln2": _norm_init(cfg, L, dtype, device),
+        "mlp": (mlp_init or _init_mlp)(gen, cfg, L, dtype, device),
     }
     if cfg.qkv_bias:
         blk.update(bq=zeros(L, Hq * hd), bk=zeros(L, Hkv * hd),
@@ -115,29 +129,33 @@ def _init_mlp(gen: torch.Generator, cfg: ArchConfig, L: int, dtype,
             for n, a, b in names}
 
 
+def _init_moe_layers(gen: torch.Generator, cfg: ArchConfig, L: int, dtype,
+                     device) -> Params:
+    return _init_attn_layers(gen, cfg, L, dtype, device,
+                             mlp_init=moe.init_moe_mlp)
+
+
 def _init_rec_layers(gen: torch.Generator, cfg: ArchConfig, L: int, dtype,
                      device) -> Params:
-    D = cfg.d_model
-    return {"ln1": torch.ones((L, D), dtype=dtype, device=device),
+    return {"ln1": _norm_init(cfg, L, dtype, device),
             "rec": rglru.init_rec_block(gen, cfg, L, dtype, device),
-            "ln2": torch.ones((L, D), dtype=dtype, device=device),
+            "ln2": _norm_init(cfg, L, dtype, device),
             "mlp": _init_mlp(gen, cfg, L, dtype, device)}
 
 
-_LAYER_INIT = {"attn": _init_attn_layers, "ssm": mamba2.init_ssm_block,
-               "rec": _init_rec_layers}
+_LAYER_INIT = {"attn": _init_attn_layers, "moe": _init_moe_layers,
+               "ssm": mamba2.init_ssm_block, "rec": _init_rec_layers}
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=None,
                 device="cuda") -> Params:
     """Random weights from ``gen`` (a generator on ``device``)."""
-    check_supported(cfg)
     dtype = dtype or torch_dtype(cfg)
     D, V = cfg.d_model, cfg.padded_vocab
     params: Params = {"embed": embed_init(gen, (V, D), dtype, device)}
     params["blocks"] = {kind: _LAYER_INIT[kind](gen, cfg, n, dtype, device)
                         for kind, n in kind_counts(cfg).items()}
-    params["final_norm"] = torch.ones((D,), dtype=dtype, device=device)
+    params["final_norm"] = _norm_init(cfg, None, dtype, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (D, V), dtype, device)
     return params
@@ -162,13 +180,13 @@ def attn_cache_capacity(cfg: ArchConfig, max_len: int) -> int:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> Cache:
-    check_supported(cfg)
     dtype = dtype or torch_dtype(cfg)
     counts = kind_counts(cfg)
     cache: Cache = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
-    if "attn" in counts:
+    n_attnlike = counts.get("attn", 0) + counts.get("moe", 0)
+    if n_attnlike:
         C = attn_cache_capacity(cfg, max_len)
-        shape = (counts["attn"], batch, C, cfg.n_kv_heads,
+        shape = (n_attnlike, batch, C, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
         cache["attn"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
                          "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -204,6 +222,25 @@ def _apply_mlp(cfg, p, x):
     return h @ p["w_down"]
 
 
+def _ffn(cfg, p, x, *, dropless: bool = False):
+    """The layer's FFN: (y, aux) — the MoE FFN (capacity path, or dropless
+    in decode) where the layer has a router, else the dense MLP with aux
+    None."""
+    if "router" in p:
+        return moe.moe_mlp(cfg, p, x, _ACTS[cfg.act], dropless=dropless)
+    return _apply_mlp(cfg, p, x), None
+
+
+def attn_out_ffn(cfg, p, x, o, *, dropless: bool = False):
+    """The rest of an attention layer after its attention output o (B, S,
+    Hq, hd): the output projection into the residual, the second norm and
+    the FFN.  Returns (x, aux)."""
+    x = x + o.reshape(*x.shape[:2], -1) @ p["wo"]
+    y, aux = _ffn(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x),
+                  dropless=dropless)
+    return x + y, aux
+
+
 def project_q(cfg, p, h):
     """The query projection alone (B, S, Hq, hd), before rope: what the
     Q-only recompute of a layer whose K/V survived needs."""
@@ -233,28 +270,36 @@ def _project_qkv(cfg, p, h):
     return q, k, v
 
 
+def rope(cfg, x, positions):
+    """RoPE, or M-RoPE with (B, S, 3) positions for an M-RoPE model."""
+    if cfg.mrope:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
 def attn_layer_fwd(cfg, p, x, positions, *, kv_write=None):
     """Full-sequence attention layer (prefill attention runs the flash
-    kernel).  Returns (x, (k, v)) with the roped k/v (B, S, Hkv, hd) that
-    ``forward`` places into the cache.
+    kernel, causal or not as the config says; an MoE layer's FFN takes
+    the capacity path).  Returns (x, (k, v), aux) with the roped k/v (B,
+    S, Hkv, hd) that ``forward`` places into the cache and the MoE load
+    balance loss (None for a dense FFN).
 
     ``kv_write`` (k_dst, v_dst): this layer's cache slices (B, cap, Hkv,
     hd), written in place with the roped k/v as a prefill lays them out
     (the ring's tail when the sequence is longer than the slice, zeros past
     a shorter one) — the reference's ``kv_write=cap``, which the full-layer
     recompute of ``core.kv_reconstruct`` uses."""
-    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    h = _apply_norm(cfg, p["ln1"], x)
     q, k, v = _project_qkv(cfg, p, h)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = rope(cfg, q, positions)
+    k = rope(cfg, k, positions)
     o = attn_lib.attention(q, k, v, causal=cfg.causal,
                            window=cfg.attn_window)
-    x = x + o.reshape(*x.shape[:2], -1) @ p["wo"]
-    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
     if kv_write is not None:
         for dst, t in zip(kv_write, (k, v)):
             _place_kv(dst, t, dst.shape[1], clear=True)
-    return x + _apply_mlp(cfg, p["mlp"], h2), (k, v)
+    x, aux = attn_out_ffn(cfg, p, x, o)
+    return x, (k, v), aux
 
 
 def _place_kv(dst, kv, cap: int, *, clear: bool = False) -> None:
@@ -275,15 +320,16 @@ def _place_kv(dst, kv, cap: int, *, clear: bool = False) -> None:
 
 def attn_layer_step(cfg, p, x, positions, k_cache, v_cache, cache_len):
     """Zero-copy single-token step. x: (B, 1, D); caches (B, C, Hkv, hd),
-    only read; positions: (B, 1); cache_len: (B,) per-slot valid lengths.
-    Returns (x, k_row, v_row): the caller writes the (B, Hkv, hd) rows
-    once, after the layer loop.  A ring-buffered (windowed) cache masks the
-    slot the new row will overwrite: once the ring is full it holds
-    position pos - C, one step outside the window."""
-    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    only read; positions: (B, 1), or (B, 1, 3) for M-RoPE; cache_len: (B,)
+    per-slot valid lengths.  Returns (x, k_row, v_row): the caller writes
+    the (B, Hkv, hd) rows once, after the layer loop.  A ring-buffered
+    (windowed) cache masks the slot the new row will overwrite: once the
+    ring is full it holds position pos - C, one step outside the window.
+    An MoE layer's FFN takes the dropless path."""
+    h = _apply_norm(cfg, p["ln1"], x)
     q, k, v = _project_qkv(cfg, p, h)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = rope(cfg, q, positions)
+    k = rope(cfg, k, positions)
     C = k_cache.shape[1]
     valid_old = torch.clamp(cache_len, max=C)
     slot_mask = None
@@ -293,30 +339,29 @@ def attn_layer_step(cfg, p, x, positions, k_cache, v_cache, cache_len):
         slot_mask = (j < p_len) & ((p_len < C) | (j != p_len % C))
     o = attn_lib.decode_attention_merged(q, k_cache, v_cache, valid_old,
                                          k, v, kv_slot_mask=slot_mask)
-    x = x + o.reshape(x.shape[0], 1, -1) @ p["wo"]
-    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-    return x + _apply_mlp(cfg, p["mlp"], h2), k[:, 0], v[:, 0]
+    x, _ = attn_out_ffn(cfg, p, x, o, dropless=True)
+    return x, k[:, 0], v[:, 0]
 
 
 def rec_layer_fwd(cfg, p, x, *, conv_state=None, h0=None):
     """Full-sequence recurrent layer (its scan runs the RG-LRU kernel).
     Returns (x, (conv_state, h_last))."""
-    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    h = _apply_norm(cfg, p["ln1"], x)
     y, state = rglru.rec_block_fwd(cfg, p["rec"], h, conv_state=conv_state,
                                    h0=h0)
     x = x + y
-    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+    h2 = _apply_norm(cfg, p["ln2"], x)
     return x + _apply_mlp(cfg, p["mlp"], h2), state
 
 
 def rec_layer_step(cfg, p, x, conv_state, h):
     """Single-token recurrent layer. x: (B, 1, D); h: (B, W) float32.
     Returns (x, conv_state, h_new)."""
-    hin = rms_norm(p["ln1"], x, cfg.norm_eps)
+    hin = _apply_norm(cfg, p["ln1"], x)
     y, (conv_s, h_new) = rglru.rec_block_step(cfg, p["rec"], hin[:, 0],
                                               conv_state, h)
     x = x + y[:, None]
-    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+    h2 = _apply_norm(cfg, p["ln2"], x)
     return x + _apply_mlp(cfg, p["mlp"], h2), conv_s, h_new
 
 
@@ -325,8 +370,15 @@ def rec_layer_step(cfg, p, x, conv_state, h):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x (B,S,D), positions (B,S))."""
-    x = params["embed"][batch["tokens"]]
+    """Returns (x (B,S,D), positions): ``batch["embeds"]`` (B, S, D) or the
+    embedded ``batch["tokens"]``; ``batch["positions"]`` ((B, S), or (B,
+    S, 3) for M-RoPE) or 0..S-1 per row."""
+    if "embeds" in batch:
+        x = batch["embeds"]
+    else:
+        x = params["embed"][batch["tokens"]]
+    if "positions" in batch:
+        return x, batch["positions"]
     B, S = x.shape[:2]
     return x, torch.arange(S, device=x.device)[None, :].expand(B, S)
 
@@ -357,15 +409,21 @@ def _kind_runs(kinds: List[str]) -> List[Tuple[str, int]]:
     return [(k, n) for k, n in runs]
 
 
-def _layers(cfg: ArchConfig) -> Iterator[Tuple[str, int]]:
-    """(kind, index in that kind's stack) of every layer, in model order,
-    walking the runs of ``_kind_runs``."""
+def _layers(cfg: ArchConfig) -> Iterator[Tuple[str, int, int]]:
+    """(kind, index in that kind's stack, index in the ``attn`` cache
+    stack or -1) of every layer, in model order, walking the runs of
+    ``_kind_runs``.  attn and moe layers share the ``attn`` cache stack."""
     cursor: Dict[str, int] = {}
+    attnlike = 0
     for kind, count in _kind_runs(cfg.layer_kinds()):
         start = cursor.get(kind, 0)
         cursor[kind] = start + count
         for i in range(start, start + count):
-            yield kind, i
+            if kind in ("attn", "moe"):
+                yield kind, i, attnlike
+                attnlike += 1
+            else:
+                yield kind, i, -1
 
 
 def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
@@ -373,19 +431,22 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
             last_index=None) -> Tuple[torch.Tensor, Any]:
     """Full-sequence forward.
 
-    mode="train":   returns (logits (B,S,V) f32, aux_loss scalar)
+    mode="train":   returns (logits (B,S,V) f32, aux_loss scalar: the MoE
+                    layers' load-balance losses summed)
     mode="prefill": returns (last logits (B,V) f32, cache)
+
+    ``batch``: {"tokens": (B, S)} or {"embeds": (B, S, D)}, optionally
+    with "positions" ((B, S), or (B, S, 3) for M-RoPE).
 
     ``last_index`` (B,) int, prefill only: per-row index of the true last
     prompt token of right-padded (bucketed) prompts.  Logits are gathered
     there and ``cache["pos"]`` is ``last_index + 1``, so decode masks the
     pad K/V.  Only valid for pure attention with a full-length cache: an
-    SSM or recurrent state would take in the pad tokens (callers gate on
-    that).
+    SSM or recurrent state would take in the pad tokens, and MoE capacity
+    couples the rows (callers gate on that).
     """
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode {mode!r}")
-    check_supported(cfg)
     x, positions = embed_tokens(cfg, params, batch)
     B, S = x.shape[:2]
     want_cache = mode == "prefill"
@@ -393,23 +454,26 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
     # the prompt's states, written layer by layer (pos is set at the end)
     cache: Cache = (init_cache(cfg, B, max_len or S, x.dtype, x.device)
                     if want_cache else {})
-    for kind, i in _layers(cfg):
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, i, a in _layers(cfg):
         p = layer_params(params["blocks"][kind], i)
-        if kind == "attn":
-            x, (k, v) = attn_layer_fwd(cfg, p, x, positions)
+        if a >= 0:
+            x, (k, v), aux = attn_layer_fwd(cfg, p, x, positions)
+            if aux is not None:
+                aux_total = aux_total + aux
             if want_cache:
-                _place_kv(cache["attn"]["k"][i], k, cap)
-                _place_kv(cache["attn"]["v"][i], v, cap)
+                _place_kv(cache["attn"]["k"][a], k, cap)
+                _place_kv(cache["attn"]["v"][a], v, cap)
         else:
             fwd = mamba2.ssm_block_fwd if kind == "ssm" else rec_layer_fwd
             x, states = fwd(cfg, p, x)
             if want_cache:      # leaves in the order the block returns
                 for leaf, st in zip(cache[kind], states):
                     cache[kind][leaf][i].copy_(st)
-    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    x = _apply_norm(cfg, params["final_norm"], x)
 
     if mode == "train":
-        return unembed(cfg, params, x), torch.zeros((), device=x.device)
+        return unembed(cfg, params, x), aux_total
 
     if last_index is not None:
         li = torch.as_tensor(last_index, dtype=torch.int32, device=x.device)
@@ -426,27 +490,32 @@ def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
                 cache: Cache) -> Tuple[torch.Tensor, Cache]:
     """One autoregressive step; updates ``cache`` in place.
 
-    batch: {"tokens": (B,) int}.
+    batch: {"tokens": (B,) int} or {"embeds": (B, 1, D)}, optionally with
+    "positions" ((B, 1), or (B, 1, 3) for M-RoPE; else ``cache["pos"]``).
     Returns (logits (B, V) f32, cache) with ``pos`` advanced by one: in
     place when it is a ``(B,)`` int32 tensor (the serving batcher's, and
-    every prefill's), else replaced by one.
+    every prefill's), else replaced by one.  An encoder-only model has no
+    decode step and raises.
     """
-    check_supported(cfg)
-    toks = batch["tokens"].reshape(-1)
-    x = params["embed"][toks][:, None, :]
-    B = toks.shape[0]
+    if not cfg.has_decode:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+    if "embeds" in batch:
+        x = batch["embeds"]
+    else:
+        x = params["embed"][batch["tokens"].reshape(-1)][:, None, :]
+    B = x.shape[0]
     pos = cache["pos"]
     if pos.dim() == 0:
         pos = pos.expand(B)
     pos = pos.to(torch.int32).contiguous()
-    positions = pos[:, None]
+    positions = batch["positions"] if "positions" in batch else pos[:, None]
     k_rows, v_rows = [], []
-    for kind, i in _layers(cfg):
+    for kind, i, a in _layers(cfg):
         p = layer_params(params["blocks"][kind], i)
-        if kind == "attn":
+        if a >= 0:
             x, kn, vn = attn_layer_step(cfg, p, x, positions,
-                                        cache["attn"]["k"][i],
-                                        cache["attn"]["v"][i], pos)
+                                        cache["attn"]["k"][a],
+                                        cache["attn"]["v"][a], pos)
             k_rows.append(kn)
             v_rows.append(vn)
         elif kind == "ssm":
@@ -468,7 +537,7 @@ def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
         bidx = torch.arange(B, device=x.device)
         kc[:, bidx, slot] = torch.stack(k_rows)
         vc[:, bidx, slot] = torch.stack(v_rows)
-    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    x = _apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params, x)[:, 0, :]
     if cache["pos"] is pos:
         pos.add_(1)

@@ -65,6 +65,8 @@ def _gen(dev, seed=0):
     (3, 300, 10, 1, 256, False, False),      # G 10 at hd 256, ragged C
     (2, 130, 20, 2, 256, True, False),       # two KV heads of 10
     (2, 200, 32, 2, 128, True, True),        # group of 16: a whole mma tile
+    (4, 1024, 16, 16, 128, True, False),     # qwen2-moe-a2.7b decode
+    (2, 1024, 64, 8, 128, True, False),      # qwen2-vl-72b: group of 8
 ])
 def test_decode_kernel_matches_plain(card, dtype, B, C, Hq, Hkv, d, fold,
                                      masked):
@@ -115,6 +117,7 @@ def _decode_against_plain(card, dtype, q, k, v, lens, kn, vn, sm=None):
     (4, 1000, 16, 8, 128),       # C not a multiple of the split width
     (4, 300, 10, 1, 256),        # recurrentgemma's group, C ragged
     (4, 77, 2, 1, 64),           # two splits, group of 2
+    (4, 1024, 16, 16, 128),      # qwen2-moe-a2.7b
 ])
 def test_decode_kernel_split_edges(card, dtype, fold, B, C, Hq, Hkv, d):
     """lens at 1, exactly one split's width, one more than it and C - 1:
@@ -155,29 +158,38 @@ def test_decode_kernel_all_rows_empty(card, dtype, fold, Hq, Hkv, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,S,Sk,Hq,Hkv,d,window,q_offset", [
-    (4, 512, 512, 32, 32, 64, 0, 0),         # opt-1.3b prefill
-    (4, 128, 128, 16, 8, 128, 0, 0),         # qwen3-1.7b GQA prefill
-    (2, 300, 300, 16, 8, 128, 64, 0),        # window, ragged edge
-    (2, 100, 612, 8, 2, 64, 0, 512),         # continued prefill
-    (1, 512, 512, 10, 1, 256, 0, 0),         # recurrentgemma prefill
-    (2, 600, 600, 10, 1, 256, 256, 0),       # hd 256, window < Sk
-    (1, 100, 612, 10, 1, 256, 0, 512),       # hd 256 continued prefill
+@pytest.mark.parametrize("B,S,Sk,Hq,Hkv,d,causal,window,q_offset", [
+    (4, 512, 512, 32, 32, 64, True, 0, 0),   # opt-1.3b prefill
+    (4, 128, 128, 16, 8, 128, True, 0, 0),   # qwen3-1.7b GQA prefill
+    (2, 300, 300, 16, 8, 128, True, 64, 0),  # window, ragged edge
+    (2, 100, 612, 8, 2, 64, True, 0, 512),   # continued prefill
+    (1, 512, 512, 10, 1, 256, True, 0, 0),   # recurrentgemma prefill
+    (2, 600, 600, 10, 1, 256, True, 256, 0),  # hd 256, window < Sk
+    (1, 100, 612, 10, 1, 256, True, 0, 512),  # hd 256 continued prefill
+    (1, 333, 333, 16, 16, 128, True, 0, 0),  # qwen2-moe, one exact prompt
+    # head dim 80 (hubert-xlarge) runs in the 128-wide tiles with zero
+    # columns: every mask, GQA and q_offset
+    (4, 512, 512, 16, 16, 80, False, 0, 0),  # hubert-xlarge prefill
+    (2, 300, 300, 16, 16, 80, True, 0, 0),   # causal, ragged edge
+    (2, 700, 700, 16, 16, 80, False, 128, 0),  # non-causal window
+    (2, 300, 300, 16, 4, 80, True, 64, 0),   # GQA, window
+    (2, 100, 612, 8, 2, 80, True, 0, 512),   # GQA, continued prefill
+    (2, 65, 65, 8, 8, 80, False, 0, 0),      # one past a 64-row tile
 ])
 def test_flash_kernel_matches_plain(card, dtype, B, S, Sk, Hq, Hkv, d,
-                                    window, q_offset):
+                                    causal, window, q_offset):
     g = _gen(card, 1)
     q = _rand((B, S, Hq, d), dtype, card, g)
     k = _rand((B, Sk, Hkv, d), dtype, card, g)
     v = _rand((B, Sk, Hkv, d), dtype, card, g)
     n0 = fa.launches
-    out = ops.flash_attention(q, k, v, causal=True, window=window,
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
                               q_offset=q_offset)
     torch.cuda.synchronize()
     assert fa.launches == n0 + 1
     with ops.plain_versions():
         ref = ops.flash_attention(q.float(), k.float(), v.float(),
-                                  causal=True, window=window,
+                                  causal=causal, window=window,
                                   q_offset=q_offset)
     assert out.dtype == dtype and out.shape == ref.shape
     assert (out.float() - ref).abs().max().item() <= TOL[dtype]
@@ -963,3 +975,79 @@ def test_wired_server_memory_comes_back(card):
     assert len(P._STAGE_STREAMS) == n_streams
     assert held > before
     assert after <= before + (1 << 20)
+
+
+# ---------------------------------------------------------------------------
+# the MoE layer on the card
+# ---------------------------------------------------------------------------
+
+def _moe_cfg(dtype="float32", **over):
+    """Reduced qwen2-moe with 8 experts, top-4, a shared expert and
+    kernel-sized heads."""
+    kw = dict(n_layers=4, d_model=256, n_heads=4, n_kv_heads=4, head_dim=64,
+              n_experts=8, top_k=4, moe_d_ff=128, dtype=dtype)
+    kw.update(over)
+    return get_arch("qwen2-moe-a2.7b").reduced(**kw)
+
+
+@pytest.mark.parametrize("dropless", [False, True],
+                         ids=["capacity", "dropless"])
+def test_moe_on_the_card_matches_cpu(card, dropless):
+    """``moe_mlp`` (capacity 0.5: pairs drop) and ``_moe_dropless`` on the
+    card against the same calls on the CPU, float32: the same routing and
+    drops, outputs within 1e-5 of max |y| (sum order)."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import _ACTS
+    cfg = _moe_cfg()
+    p = T.layer_params(moe.init_moe_mlp(_gen(card, 13), cfg, 1,
+                                        torch.float32, card), 0)
+    x = _rand((2, 40, cfg.d_model), torch.float32, card, _gen(card, 14))
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        pd = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.to(dev))
+              for k, v in p.items()}
+        with moe.record_routing() as rec:
+            y, aux = moe.moe_mlp(cfg, pd, x.to(dev), _ACTS[cfg.act],
+                                 dropless=dropless, capacity_factor=0.5)
+        outs.append((y.cpu(), aux.cpu(), rec[0][0].cpu(), rec[0][1].cpu()))
+    (y, aux, e, keep), (y0, aux0, e0, keep0) = outs
+    assert torch.equal(e, e0) and torch.equal(keep, keep0)
+    assert dropless or not bool(keep.all())
+    assert (y - y0).abs().max().item() <= 1e-5 * y0.abs().max().item()
+    assert abs(aux.item() - aux0.item()) <= 1e-5
+
+
+def test_captured_moe_decode_matches_eager(card):
+    """The dropless MoE decode step captured as a CUDA graph replays bit
+    for bit the eager step (bf16, with an adapter merged by the LoRA
+    kernel): streams, the attn cache the moe layers fill, one capture."""
+    from repro_torch.lora.adapters import init_lora, merge_lora, \
+        randomize_lora
+    cfg = _moe_cfg("bfloat16")
+    params = T.init_params(cfg, _gen(card, 15), device=card)
+    g = _gen(card, 16)
+    merged = {"lora0": merge_lora(params, randomize_lora(
+        g, init_lora(g, cfg, rank=16, device=card)))}
+    from repro_torch.serving import engine as S
+    prompts = _prompts(cfg)
+    runs = []
+    for eager in (False, True):
+        srv = S.ServingEngine(cfg, params, n_slots=4, max_len=128,
+                              adapter_params=merged)
+        srv.batcher.sampler = S.quantized_greedy
+        if eager:
+            srv.batcher._decode = srv.batcher._decode_sample
+        reqs = [S.ServeRequest(i, p, max_new_tokens=12,
+                               adapter="lora0" if i % 2 else None)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            srv.submit(r)
+        srv.run()
+        runs.append((srv, reqs))
+    (cap, creqs), (eag, ereqs) = runs
+    assert [r.generated for r in creqs] == [r.generated for r in ereqs]
+    assert cap.batcher.compile_stats()["decode_compiles"] == 1
+    assert cap.n_adapter_switches >= 1
+    for leaf, t in cap.batcher.cache["attn"].items():
+        assert torch.equal(t, eag.batcher.cache["attn"][leaf]), leaf

@@ -59,7 +59,8 @@ def _same_events(je, te):
 
 
 @pytest.mark.parametrize("arch,layers", [
-    ("qwen3-1.7b", 8), ("mamba2-780m", 8), ("recurrentgemma-2b", 6)])
+    ("qwen3-1.7b", 8), ("mamba2-780m", 8), ("recurrentgemma-2b", 6),
+    ("qwen2-moe-a2.7b", 4)])
 def test_generate_through_crash_matches_reference(arch, layers):
     """``generate`` with devices 1 and 2 crashing at step 4: the stream of
     an uncrashed run, the reference's stream, event log and recover

@@ -201,7 +201,8 @@ def test_train_forward_matches():
 def test_init_params_layout_matches_reference():
     """The port's own init has the reference's tree, shapes and dtypes."""
     for name in ("pipeboost-opt-1.3b", "qwen3-1.7b", "qwen2.5-14b",
-                 "mamba2-780m", "recurrentgemma-2b"):
+                 "mamba2-780m", "recurrentgemma-2b", "qwen2-moe-a2.7b",
+                 "phi3.5-moe-42b-a6.6b", "qwen2-vl-72b", "hubert-xlarge"):
         jcfg = jget_arch(name).reduced()
         jp = jax.tree.map(np.asarray, JT.init_params(jcfg,
                                                      jax.random.PRNGKey(0)))
@@ -212,11 +213,3 @@ def test_init_params_layout_matches_reference():
         assert [p for p, _ in flat_j] == [p for p, _ in flat_t]
         for (_, a), (_, b) in zip(flat_j, flat_t):
             assert a.shape == b.shape and a.dtype == b.dtype
-
-
-@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "qwen2-vl-72b",
-                                  "hubert-xlarge"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError):
-        TT.init_params(get_arch(name).reduced(),
-                       torch.Generator().manual_seed(0), device="cpu")

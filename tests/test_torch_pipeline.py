@@ -6,8 +6,11 @@ The oracle: one subprocess with 8 forced XLA host devices (as
 ``tests/test_distributed.py`` runs its multi-device checks) runs the
 reference's ``build_pipeline_prefill(return_cache=True)`` on ('data',
 'stage') meshes (1, 4) and (2, 4) for reduced qwen3-1.7b (with and without
-``last_index``), mamba2-780m and pipeboost-opt-1.3b, and the reference's
-sequence-chunk belt (4 stages, 8 chunks), and saves its params and outputs
+``last_index``), mamba2-780m, pipeboost-opt-1.3b and qwen2-moe-a2.7b (from
+tokens and from embeddings, and with a capacity factor of 0.5 that drops
+tokens in each microbatch's routing), and the reference's sequence-chunk
+belt (4 stages, 8 chunks; also qwen2-vl-72b with its t = h = w M-RoPE
+stub), and saves its params and outputs
 as numpy arrays (the reference's ``init_params`` folds ``hash(kind)`` into
 its key, so the params must travel with the outputs).  The port's belts on
 ``stage_mesh(..., devices=[cpu] * 8)`` hold its logits and every cache leaf
@@ -47,7 +50,19 @@ from repro_torch.serving.engine import (ServeRequest, ServingEngine,
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-4
-ARCHS = ("qwen3-1.7b", "mamba2-780m", "pipeboost-opt-1.3b")
+# case -> (arch, reduced-config overrides, GPipe belt, sequence-chunk belt)
+CASES = {
+    "qwen3-1.7b": ("qwen3-1.7b", {}, True, True),
+    "mamba2-780m": ("mamba2-780m", {}, True, False),
+    "pipeboost-opt-1.3b": ("pipeboost-opt-1.3b", {}, True, True),
+    "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", {}, True, True),
+    "qwen2-moe-cf0.5": ("qwen2-moe-a2.7b", {"capacity_factor": 0.5}, True,
+                        True),
+    "qwen2-vl-72b": ("qwen2-vl-72b", {}, False, True),
+}
+# the GPipe belt's runs of a case: "" tokens, "_last" with last_index,
+# "_embeds" from embeddings
+GPIPE_TAGS = {"qwen3-1.7b": ("", "_last"), "qwen2-moe-a2.7b": ("", "_embeds")}
 CPU8 = [torch.device("cpu")] * 8
 B, S, MAX_LEN = 4, 32, 64
 LAST = np.array([31, 20, 5, 17], np.int32)
@@ -69,33 +84,39 @@ _ORACLE = textwrap.dedent("""
         for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
             out[prefix + "/".join(p.key for p in path)] = np.asarray(leaf)
 
-    toks = np.random.default_rng(0).integers(0, 256, (B, S)).astype(np.int32)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 256, (B, S)).astype(np.int32)
+    embeds = rng.standard_normal((B, S, 64)).astype(np.float32)
     last = np.array(%r, np.int32)
-    out["tokens"] = toks
-    for arch in %r:
-        cfg = get_arch(arch).reduced(n_layers=4, vocab_size=256)
+    out["tokens"], out["embeds"] = toks, embeds
+    inputs = {"": {"tokens": jnp.asarray(toks)},
+              "_last": {"tokens": jnp.asarray(toks),
+                        "last_index": jnp.asarray(last)},
+              "_embeds": {"embeds": jnp.asarray(embeds)}}
+    tags = %r
+    for name, (arch, over, gpipe, seqchunk) in %r.items():
+        cfg = get_arch(arch).reduced(n_layers=4, vocab_size=256, **over)
         params = T.init_params(cfg, jax.random.PRNGKey(0), jnp.float32)
-        put(arch + "/params/", params)
+        put(name + "/params/", params)
         for nd in (1, 2):
             mesh = stage_mesh(4, nd)
-            f = build_pipeline_prefill(cfg, n_stages=4, n_micro=2, mesh=mesh,
-                                       seq_len=S, max_len=MAX_LEN,
-                                       return_cache=True)
-            runs = {"": {}}
-            if arch == "qwen3-1.7b":
-                runs["_last"] = {"last_index": jnp.asarray(last)}
-            for tag, extra in runs.items():
-                lg, st = f(params, {"tokens": jnp.asarray(toks), **extra})
-                out[f"{arch}/gpipe{nd}{tag}/logits"] = np.asarray(lg)
-                put(f"{arch}/gpipe{nd}{tag}/cache/", st)
-            if arch != "mamba2-780m":
+            if gpipe:
+                f = build_pipeline_prefill(cfg, n_stages=4, n_micro=2,
+                                           mesh=mesh, seq_len=S,
+                                           max_len=MAX_LEN,
+                                           return_cache=True)
+                for tag in tags.get(name, ("",)):
+                    lg, st = f(params, inputs[tag])
+                    out[f"{name}/gpipe{nd}{tag}/logits"] = np.asarray(lg)
+                    put(f"{name}/gpipe{nd}{tag}/cache/", st)
+            if seqchunk:
                 f2 = build_pipeline_prefill_seqchunk(
                     cfg, n_stages=4, n_chunks=8, mesh=mesh, seq_len=S)
-                out[f"{arch}/seqchunk{nd}/logits"] = np.asarray(
-                    f2(params, {"tokens": jnp.asarray(toks)}))
+                out[f"{name}/seqchunk{nd}/logits"] = np.asarray(
+                    f2(params, inputs[""]))
     np.savez(sys.argv[1], **out)
     print("ORACLE_OK")
-""" % (B, S, MAX_LEN, LAST.tolist(), ARCHS))
+""" % (B, S, MAX_LEN, LAST.tolist(), GPIPE_TAGS, CASES))
 
 
 @pytest.fixture(scope="module")
@@ -125,8 +146,18 @@ def _nest(flat, prefix):
     return tree
 
 
-def _cfg(arch):
-    return get_arch(arch).reduced(n_layers=4, vocab_size=256)
+def _cfg(name):
+    arch, over = CASES.get(name, (name, {}))[:2]
+    return get_arch(arch).reduced(n_layers=4, vocab_size=256, **over)
+
+
+def _oracle_batch(oracle, tag):
+    if tag == "_embeds":
+        return {"embeds": torch.from_numpy(oracle["embeds"])}
+    batch = {"tokens": torch.from_numpy(oracle["tokens"].astype(np.int64))}
+    if tag == "_last":
+        batch["last_index"] = torch.from_numpy(LAST)
+    return batch
 
 
 def _assert_cache_close(got, want, tol=TOL):
@@ -142,19 +173,17 @@ def _assert_cache_close(got, want, tol=TOL):
 
 
 @pytest.mark.parametrize("arch,nd,tag", [
-    (a, nd, tag) for a in ARCHS for nd in (1, 2)
-    for tag in (("", "_last") if a == "qwen3-1.7b" else ("",))])
+    (a, nd, tag) for a, case in CASES.items() if case[2] for nd in (1, 2)
+    for tag in GPIPE_TAGS.get(a, ("",))])
 def test_gpipe_belt_matches_jax_belt(oracle, arch, nd, tag):
     """The port's belt (4 stages, 2 microbatches) on the reference's
     params: logits and every cache leaf within 1e-4 of the reference's
     belt on the same ('data', 'stage') mesh shape; ``pos`` at
-    ``last_index + 1`` or S."""
+    ``last_index + 1`` or S.  An MoE belt routes each microbatch alone,
+    with its own capacity, as the reference's does."""
     cfg = _cfg(arch)
     params = params_from_jax(_nest(oracle, f"{arch}/params/"), "cpu")
-    toks = torch.from_numpy(oracle["tokens"].astype(np.int64))
-    batch = {"tokens": toks}
-    if tag:
-        batch["last_index"] = torch.from_numpy(LAST)
+    batch = _oracle_batch(oracle, tag)
     f = P.build_pipeline_prefill(cfg, n_stages=4, n_micro=2,
                                  mesh=P.stage_mesh(4, nd, devices=CPU8),
                                  seq_len=S, max_len=MAX_LEN,
@@ -164,15 +193,16 @@ def test_gpipe_belt_matches_jax_belt(oracle, arch, nd, tag):
     np.testing.assert_allclose(logits.numpy(), oracle[f"{run}/logits"],
                                atol=TOL)
     _assert_cache_close(cache, _nest(oracle, f"{run}/cache/"))
-    want_pos = LAST + 1 if tag else np.full((B,), S, np.int32)
+    want_pos = LAST + 1 if tag == "_last" else np.full((B,), S, np.int32)
     np.testing.assert_array_equal(cache["pos"].numpy(), want_pos)
 
 
 @pytest.mark.parametrize("arch,nd", [
-    (a, nd) for a in ARCHS if a != "mamba2-780m" for nd in (1, 2)])
+    (a, nd) for a, case in CASES.items() if case[3] for nd in (1, 2)])
 def test_seqchunk_belt_matches_jax_belt(oracle, arch, nd):
     """The sequence-chunk belt (4 stages, 8 chunks of 4 tokens) against
-    the reference's on the same mesh shape."""
+    the reference's on the same mesh shape (an MoE layer routes each
+    chunk alone; an M-RoPE model takes t = h = w positions)."""
     cfg = _cfg(arch)
     params = params_from_jax(_nest(oracle, f"{arch}/params/"), "cpu")
     f = P.build_pipeline_prefill_seqchunk(
@@ -240,6 +270,45 @@ def test_belt_ring_window_matches_forward():
     np.testing.assert_allclose(logits.numpy(), want_logits.numpy(),
                                atol=TOL)
     _assert_cache_close(cache, {"attn": want["attn"]})
+
+
+@pytest.mark.parametrize("cf,equal", [(2.0, True), (0.5, False)])
+def test_moe_belt_routes_per_microbatch(cf, equal):
+    """An MoE belt equals ``forward`` where no capacity can bind (factor
+    E/K = 2: every expert has a slot for every token) and differs from it
+    where capacity binds: each microbatch routes alone with its own
+    capacity, as the reference's belt does, while ``forward`` routes the
+    whole batch."""
+    cfg = dataclasses.replace(_cfg("qwen2-moe-a2.7b"), capacity_factor=cf)
+    params, toks = _torch_setup(cfg, seed=3)
+    want, _ = T.forward(cfg, params, {"tokens": toks}, mode="prefill",
+                        max_len=MAX_LEN)
+    f = P.build_pipeline_prefill(cfg, n_stages=4, n_micro=2,
+                                 mesh=P.stage_mesh(4, 1, devices=CPU8),
+                                 seq_len=S, max_len=MAX_LEN,
+                                 return_cache=True)
+    got, _ = f(params, {"tokens": toks})
+    err = (got - want).abs().max().item()
+    assert err <= TOL if equal else err > 1e-3
+
+
+def test_gpipe_belt_refuses_mrope():
+    """The GPipe belt has no (t, h, w) position stream for M-RoPE (the
+    reference's belt fails on it); the sequence-chunk belt takes the
+    t = h = w stub."""
+    cfg = _cfg("qwen2-vl-72b")
+    mesh = P.stage_mesh(4, 1, devices=CPU8)
+    with pytest.raises(ValueError, match="M-RoPE"):
+        P.build_pipeline_prefill(cfg, n_stages=4, n_micro=1, mesh=mesh,
+                                 seq_len=S)
+    params, toks = _torch_setup(cfg, seed=4)
+    pos = torch.arange(S)[None, :, None].expand(B, S, 3)
+    want, _ = T.forward(cfg, params, {"tokens": toks, "positions": pos},
+                        mode="prefill")
+    f = P.build_pipeline_prefill_seqchunk(cfg, n_stages=4, n_chunks=8,
+                                          mesh=mesh, seq_len=S)
+    np.testing.assert_allclose(f(params, {"tokens": toks}).numpy(),
+                               want.numpy(), atol=TOL)
 
 
 @pytest.mark.parametrize("n_stages,n_chunks,n_data", [

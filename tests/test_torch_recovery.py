@@ -50,8 +50,9 @@ def _wipe(cfg, np_cache, missing):
     out = jax.tree.map(np.copy, np_cache)
     for gi, (kind, ki, ai) in enumerate(trec._kind_indices(cfg)):
         if gi in missing:
-            for leaf in out[kind]:
-                out[kind][leaf][ai if kind == "attn" else ki] = 0
+            key = "attn" if ai >= 0 else kind    # moe fills "attn"
+            for leaf in out[key]:
+                out[key][leaf][ai if ai >= 0 else ki] = 0
     return out
 
 
@@ -95,7 +96,7 @@ def _both(arch, layers, missing, S=20, max_len=48, window=None, seed=0):
 @pytest.mark.parametrize("missing", [[2], [0, 3], "all"],
                          ids=["2", "0-3", "all"])
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-780m",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "qwen2-moe-a2.7b"])
 def test_reconstruct_matches_reference(arch, missing):
     missing = list(range(6)) if missing == "all" else missing
     trebuilt, tstats, jrebuilt, jstats, fresh = _both(arch, 6, missing)
@@ -232,13 +233,6 @@ def test_windowed_ring_attention_matches_reference_and_flash(S):
         torch.from_numpy(vc[:, :S]).transpose(1, 2), causal=True,
         window=tcfg.attn_window).transpose(1, 2)
     _close(t, to_numpy(f), 1e-5)
-
-
-def test_moe_is_not_ported():
-    cfg = get_arch("qwen2-moe-a2.7b").reduced(n_layers=2)
-    with pytest.raises(NotImplementedError):
-        trec.reconstruct_cache(cfg, {}, {"tokens": torch.zeros((1, 4))}, {},
-                               [False, False])
 
 
 def test_kind_indices_match_reference():

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """One serving decode step on the card, run eagerly and replayed from its
-captured CUDA graph, for pipeboost-opt-1.3b, mamba2-780m and
-recurrentgemma-2b at full width (bf16, 4 slots, max_len 1024, the 4 live
-requests of 64-512 prompt tokens that ``chip_smoke.py``'s recovery phase
-serves).
+captured CUDA graph, for pipeboost-opt-1.3b, mamba2-780m,
+recurrentgemma-2b and qwen2-moe-a2.7b (its dropless experts) at full width
+(bf16, 4 slots, max_len 1024, the 4 live requests of 64-512 prompt tokens
+that ``chip_smoke.py``'s recovery phase serves).
 
 For each model it prints:
 
@@ -31,7 +31,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-ARCHS = ("pipeboost-opt-1.3b", "mamba2-780m", "recurrentgemma-2b")
+ARCHS = ("pipeboost-opt-1.3b", "mamba2-780m", "recurrentgemma-2b",
+         "qwen2-moe-a2.7b")
 
 
 def _state(b):
