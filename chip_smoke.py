@@ -203,6 +203,47 @@ Phases (any failure exits non-zero and prints no result line):
    The kernels line counts 9a among the serve runs (``launches``,
    ``launches_by_arch``) and every part in ``families_launches_by_part``;
    a ``{"moe_decode_step": ...}`` line before it holds 9a's step.
+10. Training (launch counts reset just before each part and read just
+   after):
+   - 10a: each kernel on the train path through its autograd Function
+     (the launch, then the backward: flash by the plain formulas, the SSD
+     scan by autograd of the plain version run again, the RG-LRU scan by
+     the kernel on the reversed recurrence) against the plain version
+     differentiated by autograd: flash at opt-1.3b's, recurrentgemma-2b's
+     (window 128), hubert-xlarge's (head dim 80, non-causal) and
+     qwen2-moe-a2.7b's shapes, the SSD scan at mamba2-780m's width (from
+     zeros and from a state, x, B and C strided views of one conv_out),
+     the RG-LRU scan at W 2560 (from zeros and from h0); float32 within
+     1e-4 of max |plain gradient|, bf16 printed against the float32 plain
+     gradients; then each kernel's forward and backward timed beside the
+     plain version's backward and, for flash, SDPA's forward and
+     backward;
+   - 10b: ``launch.train --arch pipeboost-opt-1.3b --steps 10 --batch 8
+     --seq 512`` at full width and depth in bf16 with every layer
+     rematerialised: every loss finite, the last below the first, 48
+     flash launches a step (each of the 24 layers' forward runs twice
+     under remat) and no other kernel; the step time (median of steps
+     3-10), tokens/s, peak memory and model FLOPs a step
+     (``core/analytic.py``'s ``train_step_flops``) against the 989
+     TFLOP/s bf16 peak, printed as a ``{"train_step": ...}`` line before
+     the kernels line;
+   - 10c: one loss and gradient evaluation through the kernels and
+     through the plain versions, float32 at full width with depth cut:
+     mamba2-780m at 8 of 48 layers (2 x 512), recurrentgemma-2b at 6 of 26
+     (1 x 2176, so the 2048-token window binds), qwen2-moe-a2.7b at 4 of 24
+     (2 x 256, capacity path and aux loss); the loss within 1e-5
+     relative and every gradient leaf within 1e-3 of its max |g|; the
+     same draws in bf16, their loss printed;
+   - 10d: ``launch.train`` at opt-1.3b's full width, 2 layers, 6 steps
+     with a checkpoint every 3, then resumed from step 3 after step 6's
+     checkpoint is set aside: steps 4-6 bit-equal to the uninterrupted
+     run's losses, and the two step-6 checkpoints equal leaf by leaf
+     (params, step, m and v); the checkpoint's bytes and its save and
+     restore times printed.
+   The kernels line gains ``train_launches`` (10b-10d) and
+   ``train_launches_by_part`` for every kernel, and ``backward_ms``,
+   ``backward_route`` and ``train_timing`` (10a's times) for the three
+   on the train path.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -2287,6 +2328,392 @@ def qwen2_vl(torch, ops, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "pipeboost-opt-1.3b"
+TRAIN_GRAD_TOL = 1e-4        # 10a float32 gradients: share of max |plain g|
+TRAIN_LEAF_TOL = 1e-3        # 10c float32 gradient leaves: share of max
+TRAIN_LOSS_RTOL = 1e-5       # 10c float32 loss, relative
+BACKWARD_ROUTE = {"flash_attention": "plain", "ssd_scan": "plain",
+                  "rglru_scan": "kernel, reversed"}
+
+
+def _grads(torch, fn, inputs, gouts=None, seed=0):
+    """(outputs, grads of sum <out, gout> w.r.t. the inputs that require
+    a gradient, gouts); gouts drawn from ``seed`` when not given."""
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    if gouts is None:
+        g = torch.Generator(device=outs[0].device).manual_seed(seed)
+        gouts = [torch.randn(o.shape, generator=g, device=o.device).to(
+            o.dtype) for o in outs]
+    wanted = [t for t in inputs if t is not None and t.requires_grad]
+    return outs, torch.autograd.grad(outs, wanted, gouts), gouts
+
+
+def _grad_err(torch, got, want):
+    """max over the inputs of max|got - want| / max|want|."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        scale = b.float().abs().max().item()
+        require(scale > 0, "a zero plain gradient")
+        worst = max(worst, (a.float() - b.float()).abs().max().item()
+                    / scale)
+    return worst
+
+
+def _leaf(t, dtype):
+    return t.detach().to(dtype).requires_grad_()
+
+
+def _time_grad(torch, label, fn, inputs, iters, bwd_iters):
+    """(forward ms, backward ms, backward host-paced ms) of ``fn`` on
+    ``inputs``: the forward alone, then the backward of one recorded
+    forward, replayed with ``retain_graph``, ``bwd_iters`` times (a
+    backward through plain code issues tens to thousands of launches, and
+    ``time_ms`` wants the launches of its loop well inside the device's
+    queue).  Where issuing them still outlasts ``time_ms``'s spin, the
+    device time is an upper bound (a note says so) and the host-paced time
+    is what a train step pays."""
+    fwd_ms, _ = time_ms(torch, f"{label} forward",
+                        [lambda: fn(*inputs)], iters)
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    gouts = [torch.ones_like(o) for o in outs]
+    wanted = [t for t in inputs if t is not None and t.requires_grad]
+    bwd_ms, bwd_paced = time_ms(torch, f"{label} backward", [
+        lambda: torch.autograd.grad(outs, wanted, gouts,
+                                    retain_graph=True)], bwd_iters)
+    return fwd_ms, bwd_ms, bwd_paced
+
+
+def kernel_gradients(torch, ops, dev, results):
+    """10a: each kernel's autograd Function (the launch, and the backward
+    of section 1a) against the plain version differentiated by autograd:
+    float32 held within TRAIN_GRAD_TOL of max |plain g|, bf16 printed
+    against the float32 plain gradients of the same inputs.  Then the
+    forward and backward of each timed beside the plain version's and,
+    for flash, SDPA's (``library_backward_ms``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import ssd_scan as ssd
+    F = torch.nn.functional
+    f32, bf = torch.float32, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(31)
+    launched = {}
+
+    def check(name, kernel, plain, make, dtypes, tag):
+        """``make(dt)``: the inputs of a run in dtype ``dt`` (the inputs
+        the kernel takes in float32 stay float32)."""
+        for dt in dtypes:
+            ins = [None if t is None else _leaf(t, t.dtype)
+                   for t in make(dt)]
+            ops.reset_launch_counts()
+            _, got, gouts = _grads(torch, kernel, ins)
+            torch.cuda.synchronize()
+            n = ops.launch_counts()[name]
+            require(n >= 1, f"10a {name} {tag}: the kernel never launched")
+            launched[name] = launched.get(name, 0) + n
+            ref_ins = [None if t is None else _leaf(t, f32) for t in ins]
+            _, want, _ = _grads(torch, plain, ref_ins,
+                                [o.float() for o in gouts])
+            err = _grad_err(torch, got, want)
+            kind = "float32" if dt == f32 else "bf16 against float32"
+            print(f"  10a {name} {tag} {kind}: max|grad kernel - plain| = "
+                  f"{err:.3e} of max|plain grad|, launches {n}")
+            if dt == f32:
+                require(err <= TRAIN_GRAD_TOL,
+                        f"10a {name} {tag}: {err} > {TRAIN_GRAD_TOL}")
+
+    def flash_fns(kw):
+        return (lambda q, k, v: ops.flash_attention(q, k, v, **kw),
+                lambda q, k, v: fa.flash_attention_plain(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    **kw).transpose(1, 2))
+
+    flash_cases = [("opt-1.3b", (4, 512, 32, 32, 64), {}),
+                   ("recurrentgemma-2b window 128", (1, 512, 10, 1, 256),
+                    {"window": 128}),
+                   ("hubert-xlarge d 80 non-causal", (4, 512, 16, 16, 80),
+                    {"causal": False}),
+                   ("qwen2-moe-a2.7b", (1, 512, 16, 16, 128), {})]
+    for tag, (B, S, Hq, Hkv, d), kw in flash_cases:
+        def make(dt, B=B, S=S, Hq=Hq, Hkv=Hkv, d=d):
+            return [torch.randn((B, S, h, d), generator=g, device=dev).to(dt)
+                    for h in (Hq, Hkv, Hkv)]
+        check("flash_attention", *flash_fns(kw), make, (f32, bf), tag)
+
+    H, P, N = 48, 64, 128                    # mamba2-780m
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+
+    def ssd_make(dt, B=1, S=512, with_state=False):
+        """conv_out in ``dt``; dt, A and the state float32."""
+        return [torch.randn((B, S, H * P + 2 * N), generator=g,
+                            device=dev).to(dt),
+                F.softplus(torch.randn((B, S, H), generator=g, device=dev)),
+                A.clone(),
+                torch.randn((B, H, P, N), generator=g, device=dev)
+                if with_state else None]
+
+    def ssd_split(conv, dt, A, h0):
+        B, S = conv.shape[:2]
+        return (conv[..., :H * P].reshape(B, S, H, P), dt, A,
+                conv[..., H * P:H * P + N], conv[..., H * P + N:], h0)
+
+    def ssd_k(*a):
+        return ops.ssd_scan(*ssd_split(*a))
+
+    def ssd_p(*a):
+        return ssd.ssd_scan_plain(*ssd_split(*a))
+
+    for with_state in (False, True):
+        check("ssd_scan", ssd_k, ssd_p,
+              lambda dt, w=with_state: ssd_make(dt, with_state=w), (f32, bf),
+              f"B 1 S 512{' from a state' if with_state else ''}")
+
+    W = 2560                                  # recurrentgemma-2b
+    lam = torch.log(torch.expm1(-torch.log(torch.linspace(
+        0.9, 0.999, W, device=dev)) / 8.0))
+
+    def rg_make(dt=f32, B=1, S=512, with_h0=False):
+        """float32 only: the kernel's dtype."""
+        r = torch.sigmoid(torch.randn((B, S, W), generator=g, device=dev))
+        log_a = -8.0 * F.softplus(lam) * r
+        bx = torch.sqrt(1 - torch.exp(2 * log_a)) * torch.randn(
+            (B, S, W), generator=g, device=dev)
+        return [log_a, bx, torch.randn((B, W), generator=g, device=dev)
+                if with_h0 else None]
+
+    for with_h0 in (False, True):
+        check("rglru_scan", ops.rglru_scan, rg.rglru_scan_plain,
+              lambda dt, w=with_h0: rg_make(dt, with_h0=w), (f32,),
+              f"B 1 S 512 W {W}{' from h0' if with_h0 else ''}")
+
+    # times at the train path's shapes and dtypes (bf16 attention and
+    # SSD, float32 RG-LRU)
+    timing = {}
+    q, k, v = [_leaf(torch.randn((4, 512, 32, 64), generator=g, device=dev),
+                     bf) for _ in range(3)]
+    fk, fp = flash_fns({})
+    ms, bwd, paced = _time_grad(torch, "flash kernel", fk, (q, k, v), 50,
+                                10)
+    _, plain_bwd, plain_paced = _time_grad(torch, "flash plain", fp,
+                                           (q, k, v), 2, 2)
+    lib = [_leaf(t.transpose(1, 2).contiguous(), bf) for t in (q, k, v)]
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    lib_fwd, lib_bwd, _ = _time_grad(torch, "flash SDPA", sdpa, lib, 50, 50)
+    timing["flash_attention"] = dict(
+        shape="opt-1.3b 4 x 512, 32 heads of 64, bf16", forward_ms=ms,
+        backward_ms=bwd, backward_host_paced_ms=paced,
+        plain_backward_ms=plain_bwd, plain_backward_host_paced_ms=plain_paced,
+        library_forward_ms=lib_fwd, library_backward_ms=lib_bwd)
+    sins = [None if t is None else _leaf(t, t.dtype) for t in ssd_make(bf)]
+    ms, bwd, paced = _time_grad(torch, "ssd kernel", ssd_k, sins, 50, 2)
+    _, plain_bwd, plain_paced = _time_grad(torch, "ssd plain", ssd_p, sins,
+                                           3, 2)
+    timing["ssd_scan"] = dict(
+        shape="mamba2-780m B 1 S 512, H 48 P 64 N 128, bf16", forward_ms=ms,
+        backward_ms=bwd, backward_host_paced_ms=paced,
+        plain_backward_ms=plain_bwd, plain_backward_host_paced_ms=plain_paced)
+    rins = [_leaf(t, f32) for t in rg_make()[:2]] + [None]
+    ms, bwd, paced = _time_grad(torch, "rglru kernel", ops.rglru_scan, rins,
+                                50, 40)
+    _, plain_bwd, plain_paced = _time_grad(torch, "rglru plain",
+                                           rg.rglru_scan_plain, rins, 1, 1)
+    timing["rglru_scan"] = dict(
+        shape="recurrentgemma-2b B 1 S 512 W 2560, float32", forward_ms=ms,
+        backward_ms=bwd, backward_host_paced_ms=paced,
+        plain_backward_ms=plain_bwd, plain_backward_host_paced_ms=plain_paced)
+    for name, t in timing.items():
+        t["backward_route"] = BACKWARD_ROUTE[name]
+        print(f"  10a timed {name} ({t['shape']}): forward "
+              f"{t['forward_ms']:.4f} ms, backward {t['backward_ms']:.4f} ms "
+              f"(host-paced {t['backward_host_paced_ms']:.4f} ms; "
+              f"{t['backward_route']}), plain backward "
+              f"{t['plain_backward_ms']:.4f} ms (host-paced "
+              f"{t['plain_backward_host_paced_ms']:.4f} ms)"
+              + (f", SDPA forward {t['library_forward_ms']:.4f} ms, backward "
+                 f"{t['library_backward_ms']:.4f} ms"
+                 if "library_backward_ms" in t else ""))
+    results.update(timing)
+    torch.cuda.empty_cache()
+    return launched
+
+
+def train_step_run(torch, ops, dev):
+    """10b: ``launch.train`` at opt-1.3b's full width and depth in bf16
+    with every layer rematerialised, batch 8 x 512 for 10 steps: every
+    loss finite, the last below the first, 48 flash launches a step (24
+    layers, each forward run twice: once, and again in the backward by
+    the rematerialisation)."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import analytic
+    from repro_torch.launch import train
+    steps, B, S = 10, 8, 512
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(steps), "--batch", str(B),
+            "--seq", str(S)]
+    print(f"  python -m repro_torch.launch.train {' '.join(argv)}")
+    ops.reset_launch_counts()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    cfg = get_arch(TRAIN_ARCH)
+    losses = res.losses
+    require(len(losses) == steps and all(math.isfinite(x) for x in losses),
+            f"10b losses {losses}")
+    require(losses[-1] < losses[0], f"10b loss did not fall: {losses}")
+    want = 2 * cfg.n_layers * steps
+    require(counts["flash_attention"] == want
+            and sum(counts.values()) == want,
+            f"10b launches {counts}, expected {want} flash")
+    later = sorted(res.step_s[2:])
+    step_s = later[len(later) // 2]
+    model_flops = analytic.train_step_flops(cfg, B, S)
+    executed = 4 * analytic.forward_flops(cfg, B, S)
+    out = dict(arch=TRAIN_ARCH, n_params=res.n_params, batch=B, seq=S,
+               steps=steps, dtype="bfloat16", remat=True, losses=losses,
+               step_ms_median=step_s * 1e3,
+               step_ms_all=[x * 1e3 for x in res.step_s],
+               tokens_per_s=B * S / step_s,
+               peak_memory_gib=res.peak_memory_bytes / 2 ** 30,
+               model_flops=model_flops,
+               model_flops_source="core/analytic.py train_step_flops "
+                                  "(3 x forward_flops)",
+               executed_flops_with_remat=executed,
+               model_flops_share_of_bf16_peak=model_flops / step_s
+               / PEAK_FLOPS["bfloat16"],
+               flash_launches_per_step=counts["flash_attention"] // steps)
+    print(f"  10b {TRAIN_ARCH} ({res.n_params / 1e9:.3f} B params) {B} x "
+          f"{S}: losses {' '.join(f'{x:.4f}' for x in losses)}; step "
+          f"{out['step_ms_median']:.1f} ms (median of steps 3-{steps}), "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak "
+          f"{out['peak_memory_gib']:.2f} GiB, model FLOPs "
+          f"{model_flops:.3e} = {100 * out['model_flops_share_of_bf16_peak']:.1f}"
+          f"% of 989 TFLOP/s; flash launches {counts['flash_attention']} "
+          f"({out['flash_launches_per_step']} a step: each layer's forward "
+          f"twice under remat)")
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def family_gradients(torch, ops, dev, arch, layers, B, S, kernels):
+    """10c: one loss and gradient evaluation (remat on, the train path's
+    ``value_and_grad``) at full width, depth cut to ``layers``, through
+    the kernels and through ``plain_versions()``: float32 loss within
+    TRAIN_LOSS_RTOL and every gradient leaf within TRAIN_LEAF_TOL of its
+    max |g|; the bf16 run's loss printed."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train as ttrain
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers,
+                              dtype="float32")
+    def init(c):
+        """The same draws in ``c``'s dtype (the float32 leaves, such as
+        A_log, stay float32)."""
+        gen = torch.Generator(device=dev).manual_seed(41)
+        return T.init_params(c, gen, device=dev)
+
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(42))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    params16 = init(cfg16)
+    (l16, _), g16 = ttrain.value_and_grad(ttrain.make_loss_fn(
+        cfg16, remat=True))(params16, batch)
+    del params16, g16
+    params = init(cfg)
+    grad_fn = ttrain.value_and_grad(ttrain.make_loss_fn(cfg, remat=True))
+    ops.reset_launch_counts()
+    (lk, _), gk = grad_fn(params, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    with ops.plain_versions():
+        (lp, _), gp = grad_fn(params, batch)
+    for name in kernels:
+        require(counts[name] > 0, f"10c {arch}: {name} never launched")
+    lerr = abs(float(lk) - float(lp)) / abs(float(lp))
+    worst = 0.0
+    for a, b in zip(topt.tree_leaves(gk), topt.tree_leaves(gp)):
+        scale = b.abs().max().item()
+        if scale > 0:
+            worst = max(worst, (a - b).abs().max().item() / scale)
+        else:
+            require(a.abs().max().item() == 0, f"10c {arch}: grad where "
+                    f"the plain run has none")
+    print(f"  10c {arch} ({layers} of {get_arch(arch).n_layers} layers, "
+          f"full width) {B} x {S}: float32 loss kernel {float(lk):.6f}, "
+          f"plain {float(lp):.6f} (rel {lerr:.2e}); gradient leaves within "
+          f"{worst:.2e} of their max |g|; bf16 kernel loss "
+          f"{float(l16):.6f}; launches {counts}")
+    require(lerr <= TRAIN_LOSS_RTOL and worst <= TRAIN_LEAF_TOL,
+            f"10c {arch}: loss {lerr} or gradients {worst}")
+    del params, gk, gp
+    torch.cuda.empty_cache()
+    return counts
+
+
+def checkpoint_resume(torch, ops, dev):
+    """10d: ``launch.train`` at opt-1.3b's full width, depth cut to 2
+    layers (a full-depth checkpoint with float32 m and v is about 16 GB),
+    6 steps with a checkpoint every 3; then the directory as a crash after
+    step 3 would leave it (step 6 set aside, LATEST at step 3) and
+    ``--resume``: the resumed steps 4-6 and step 6's checkpoint equal to
+    the uninterrupted run's, bit for bit."""
+    import shutil
+    import numpy as np
+    from repro_torch.launch import train
+    d = ROOT / "build" / "chip_smoke_ckpt"
+    kept = ROOT / "build" / "chip_smoke_ckpt_step6"
+    for p in (d, kept):
+        shutil.rmtree(p, ignore_errors=True)
+    argv = ["--arch", TRAIN_ARCH, "--layers", "2", "--steps", "6",
+            "--batch", "8", "--seq", "512", "--ckpt-every", "3",
+            "--ckpt-dir", str(d)]
+    print(f"  python -m repro_torch.launch.train {' '.join(argv)}")
+    ops.reset_launch_counts()
+    try:
+        a = train.main(argv)
+        step6 = d / "step_000000006"
+        nbytes_ = sum(f.stat().st_size for f in step6.iterdir())
+        step6.rename(kept)
+        (d / "LATEST").write_text("step_000000003")
+        b = train.main(argv + ["--resume"])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        with np.load(kept / "arrays.npz") as fa, \
+                np.load(step6 / "arrays.npz") as fb:
+            unequal = sorted(set(fa.files) ^ set(fb.files)) + [
+                k for k in fa.files
+                if k in fb.files and not np.array_equal(fa[k], fb[k])]
+            leaves = len(fa.files)
+    finally:
+        for p in (d, kept):
+            shutil.rmtree(p, ignore_errors=True)
+    require(b.start_step == 3 and len(b.losses) == 3, f"10d resume {b}")
+    rel = max(abs(x - y) / abs(y) for x, y in zip(b.losses, a.losses[3:]))
+    print(f"  10d checkpoint {nbytes_ / 1e9:.3f} GB, final save "
+          f"{a.ckpt_save_s:.2f} s, restore {b.ckpt_restore_s:.2f} s; "
+          f"uninterrupted steps 4-6 {' '.join(f'{x:.6f}' for x in a.losses[3:])}"
+          f", resumed {' '.join(f'{x:.6f}' for x in b.losses)} (max rel "
+          f"{rel:.2e}, equal {b.losses == a.losses[3:]}); step-6 "
+          f"checkpoints: {leaves - len(unequal)} of {leaves} leaves equal; "
+          f"launches {counts}")
+    require(b.losses == a.losses[3:],
+            f"10d resumed losses {b.losses} != {a.losses[3:]}")
+    require(not unequal, f"10d step-6 checkpoints differ at {unequal[:8]}")
+    require(counts["flash_attention"] > 0, "10d never launched flash")
+    return counts, dict(checkpoint_bytes=nbytes_, save_s=a.ckpt_save_s,
+                        restore_s=b.ckpt_restore_s,
+                        resumed_equal=b.losses == a.losses[3:],
+                        resumed_max_rel=rel)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2346,7 +2773,7 @@ def main() -> int:
         f"bf16 SSD kernels without HMMA products: {ssd_tc}")
 
     print("== phase 3: kernels against their plain versions")
-    results = {}
+    results, train_results = {}, {}
     check_decode(torch, ops, dev, results)
     check_flash(torch, ops, dev, results)
     check_lora(torch, ops, dev, results)
@@ -2432,6 +2859,24 @@ def main() -> int:
         "9e_qwen2_vl": qwen2_vl(torch, ops, dev),
     })
     serve_counts[MOE_ARCH] = family_parts["9a_moe_serve"]
+    torch.cuda.empty_cache()
+    print("== phase 10: training on the card")
+    t10 = time.perf_counter()
+    grad_launches = kernel_gradients(torch, ops, dev, train_results)
+    train_parts, train_step = {}, {}
+    train_parts["10b_train_step"], train_step = train_step_run(torch, ops,
+                                                              dev)
+    train_parts["10c_mamba2"] = family_gradients(
+        torch, ops, dev, "mamba2-780m", 8, 2, 512, ("ssd_scan",))
+    train_parts["10c_recurrentgemma"] = family_gradients(
+        torch, ops, dev, "recurrentgemma-2b", 6, 1, 2176,
+        ("flash_attention", "rglru_scan"))
+    train_parts["10c_qwen2_moe"] = family_gradients(
+        torch, ops, dev, MOE_ARCH, 4, 2, 256, ("flash_attention",))
+    train_parts["10d_checkpoint"], ckpt = checkpoint_resume(torch, ops, dev)
+    train_step["checkpoint_10d"] = ckpt
+    print(f"  phase 10 took {time.perf_counter() - t10:.1f} s; 10a "
+          f"comparison launches {grad_launches}")
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     kernels = []
@@ -2473,10 +2918,22 @@ def main() -> int:
                       "at_hubert"):
             if extra in r:
                 entry[extra] = r[extra]
+        # launches of phase 10's train runs (10b the train step, 10c the
+        # families, 10d the checkpoint and resume); 10a's comparison
+        # launches are not counted
+        entry["train_launches"] = sum(c[name] for c in train_parts.values())
+        entry["train_launches_by_part"] = {
+            part: c[name] for part, c in train_parts.items()}
+        if name in train_results:
+            t = train_results[name]
+            entry["backward_ms"] = t["backward_ms"]
+            entry["backward_route"] = t["backward_route"]
+            entry["train_timing"] = t
         kernels.append(entry)
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"pipeline_belt_timings": belt_ms}))
     print(json.dumps({"moe_decode_step": moe_step}))
+    print(json.dumps({"train_step": train_step}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -9,14 +9,16 @@ flip, which is what Fig. 14 shows blowing up at high request rates.
 
 Own copy of the policies of ``repro/core/adapter_scheduler.py``; the
 policy object drives the serving engine (repro_torch/serving/engine.py)
-through its ``next_batch`` interface.
+through its ``next_batch`` interface.  ``simulate_adapter_serving`` is the
+reference's discrete-event model of one replica under either policy (the
+paper's Fig. 14).
 """
 from __future__ import annotations
 
 import math
 from collections import OrderedDict, deque
 from dataclasses import dataclass
-from typing import Deque, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Tuple
 
 
 @dataclass
@@ -129,3 +131,73 @@ class EagerPolicy:
     def requeue_front(self, state, items):
         for it in reversed(items):
             state["fifo"].appendleft(it)
+
+
+def simulate_adapter_serving(policy, *, rps: float, horizon: float,
+                             n_adapters: int = 2, switch_prob: float = 0.2,
+                             service_s: float = 0.05, merge_s: float = 0.15,
+                             seed: int = 0) -> Dict[str, float]:
+    """Deterministic DES of one serving replica under a request stream where
+    consecutive requests switch adapters with ``switch_prob``.
+
+    Returns mean/var/p99 completion latency and the number of merges.
+    """
+    rng_state = [seed * 2654435761 % 2**32 or 1]
+
+    def rnd() -> float:
+        rng_state[0] = (1103515245 * rng_state[0] + 12345) % 2**31
+        return rng_state[0] / float(2**31)
+
+    # arrival stream
+    reqs: List[Request] = []
+    t, adapter_i, rid = 0.0, 0, 0
+    while True:
+        t += -math.log(max(rnd(), 1e-12)) / max(rps, 1e-9)
+        if t >= horizon:
+            break
+        if rnd() < switch_prob:
+            adapter_i = (adapter_i + 1) % n_adapters
+        reqs.append(Request(rid, f"lora{adapter_i}", t, service_s))
+        rid += 1
+
+    state = policy.make_state()
+    clock = 0.0
+    active: Optional[str] = None
+    merges = 0
+    done: List[Request] = []
+    i = 0
+    while i < len(reqs) or _pending(state):
+        # admit everything that has arrived by `clock`
+        while i < len(reqs) and reqs[i].arrival <= clock:
+            policy.enqueue(state, reqs[i])
+            i += 1
+        adapter, batch = policy.next_batch(state)
+        if adapter is None:
+            if i < len(reqs):
+                clock = max(clock, reqs[i].arrival)
+                continue
+            break
+        if adapter != active:
+            clock += merge_s          # unmerge + merge pass
+            active = adapter
+            merges += 1
+        # continuous batching: batch completes together
+        clock += batch[0].service
+        for r in batch:
+            r.start = clock - r.service
+            r.finish = clock
+            done.append(r)
+    lats = [r.latency for r in done]
+    if not lats:
+        return {"mean": 0.0, "var": 0.0, "p99": 0.0, "merges": 0.0, "n": 0.0}
+    mean = sum(lats) / len(lats)
+    var = sum((x - mean) ** 2 for x in lats) / len(lats)
+    p99 = sorted(lats)[min(len(lats) - 1, int(0.99 * len(lats)))]
+    return {"mean": mean, "var": var, "p99": p99,
+            "merges": float(merges), "n": float(len(lats))}
+
+
+def _pending(state) -> bool:
+    if "fifo" in state:
+        return bool(state["fifo"])
+    return any(q for q in state.get("queues", {}).values())

@@ -202,3 +202,13 @@ def ptr(t) -> Optional[int]:
 
 def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a call on these inputs: grad mode is on and
+    one of them requires a gradient.  The wrappers of the kernels on the
+    train path then run their ``torch.autograd.Function``; otherwise they
+    launch the kernel directly, as every serving path and captured decode
+    step does."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)

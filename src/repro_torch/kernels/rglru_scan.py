@@ -24,12 +24,21 @@ Layouts: log_a, bx (B, S, W) float32 with the channel dimension
 contiguous; h0 (B, W) float32 or None (zeros) -> y (B, S, W) float32,
 h_T (B, W) float32.  The wrapper runs the kernel for CUDA tensors (or
 raises) and the plain version for CPU tensors.
+
+Gradients: where autograd records the call, the wrapper runs the kernel
+inside ``function(launch)``, a ``torch.autograd.Function`` whose backward
+(``rglru_scan_backward``) is the same recurrence run backwards in time
+through the same launch: g_t = dy_t + a_{t+1} g_{t+1} from g_{S-1} =
+dy_{S-1} + dh_T is the scan of flip(dy) with decays [0, flip(log_a[1:])]
+from h0 = dh_T, flipped back; then d bx = g, d log_a_t = g_t a_t h_{t-1}
+and dh0 = a_0 g_0.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build
 
@@ -125,14 +134,69 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"rglru_scan kernel: {msg}")
 
 
+def rglru_scan_backward(forward, log_a, h0, y, dy, dh_T):
+    """(d log_a, d bx, dh0 or None) of ``rglru_scan`` at (log_a, h0) with
+    outputs y, for the output gradients (dy, dh_T), through ``forward``
+    (the kernel's launch, or a plain version) run on the reversed
+    recurrence.  In time t = 0..S-1 with a_t = exp(log_a_t): g_t = dy_t +
+    a_{t+1} g_{t+1}, g_{S-1} = dy_{S-1} + dh_T, which is ``forward`` of
+    log_a' = [0, flip(log_a[:, 1:])] and bx' = flip(dy) from h0 = dh_T,
+    flipped back; d bx_t = g_t, d log_a_t = g_t a_t h_{t-1} (h_{-1} = h0,
+    or 0) and dh0 = a_0 g_0."""
+    f32 = torch.float32
+    la = log_a.to(f32)
+    la_rev = torch.cat([torch.zeros_like(la[:, :1]), la[:, 1:].flip(1)], 1)
+    g, _ = forward(la_rev, dy.to(f32).flip(1).contiguous(),
+                   dh_T.to(f32).contiguous())
+    g = g.flip(1)
+    a = torch.exp(la)
+    h_prev = torch.cat([torch.zeros_like(y[:, :1]) if h0 is None
+                        else h0.to(f32)[:, None], y[:, :-1].to(f32)], 1)
+    dh0 = None if h0 is None else (a[:, 0] * g[:, 0]).to(h0.dtype)
+    return ((g * a * h_prev).to(log_a.dtype), g, dh0)
+
+
+def function(forward):
+    """A ``torch.autograd.Function`` over ``forward`` (the kernel's launch
+    on the card; the CPU tests pass ``rglru_scan_plain``): the forward is
+    ``forward`` unchanged, the backward ``rglru_scan_backward`` through the
+    same ``forward``.  A second derivative raises
+    (``once_differentiable``)."""
+
+    class RGLRUScan(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, log_a, bx, h0):
+            y, h_T = forward(log_a, bx, h0)
+            ctx.save_for_backward(log_a, h0, y)
+            return y, h_T
+
+        @staticmethod
+        @once_differentiable
+        def backward(ctx, dy, dh_T):
+            log_a, h0, y = ctx.saved_tensors
+            dla, dbx, dh0 = rglru_scan_backward(forward, log_a, h0, y, dy,
+                                                dh_T)
+            return dla, dbx, dh0
+
+    return RGLRUScan
+
+
 def rglru_scan(log_a, bx, h0=None):
     """log_a, bx: (B, S, W) float32; h0: (B, W) float32 or None (zeros)
     -> (y (B, S, W), h_T (B, W)), both float32.
 
     CPU tensors run ``rglru_scan_plain``; CUDA tensors launch the kernel
-    or raise."""
+    or raise, inside the autograd Function where autograd records the
+    call."""
     if not log_a.is_cuda:
         return rglru_scan_plain(log_a, bx, h0)
+    if build.needs_grad(log_a, bx, h0):
+        return _Kernel.apply(log_a, bx, h0)
+    return _launch(log_a, bx, h0)
+
+
+def _launch(log_a, bx, h0=None):
+    """The kernel's launch: checks the inputs, counts the launch."""
     global launches
     _require(log_a.dim() == 3, f"log_a must be (B, S, W), got "
              f"{tuple(log_a.shape)}")
@@ -161,6 +225,9 @@ def rglru_scan(log_a, bx, h0=None):
     build.check(err, "rglru_scan")
     launches += 1
     return y, h_T
+
+
+_Kernel = function(_launch)
 
 
 def max_active_clusters(device: int, B: int, S: int, W: int) -> int:

@@ -32,10 +32,17 @@ views (slices of one ``conv_out`` tensor): the kernel reads any strides
 with the last dimension contiguous, so nothing is copied.  The wrapper
 runs the kernel for CUDA tensors (or raises) and the plain version for
 CPU tensors.
+
+Gradients: where autograd records the call, the wrapper runs the kernel
+inside ``function(launch)``, a ``torch.autograd.Function`` whose backward
+(``ssd_scan_backward``) runs the plain version again from the saved inputs
+and differentiates it, for x, dt, A, B, C and the initial state.  The
+reference has no backward kernel either.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import build
 
@@ -168,15 +175,60 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"ssd_scan kernel: {msg}")
 
 
+def ssd_scan_backward(inputs, dy, dstate, needs):
+    """The gradients of ``ssd_scan`` at ``inputs`` = (x, dt, A, Bm, Cm,
+    initial_state or None) for the output gradients (dy, dstate): the
+    plain version run again from the inputs (detached; x, Bm and Cm keep
+    their strides) and differentiated by autograd.  ``needs`` says for
+    each input whether its gradient is wanted; the others get None."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(bool(n))
+                  for t, n in zip(inputs, needs)]
+        y, state = ssd_scan_plain(*leaves)
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad((y, state), wanted, (dy, dstate)))
+    return tuple(next(grads) if t is not None and t.requires_grad else None
+                 for t in leaves)
+
+
+def function(forward):
+    """A ``torch.autograd.Function`` over ``forward`` (the kernel's launch
+    on the card; the CPU tests pass ``ssd_scan_plain``): the forward is
+    ``forward`` unchanged, the backward ``ssd_scan_backward``.  A second
+    derivative raises (``once_differentiable``)."""
+
+    class SSDScan(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dt, A, Bm, Cm, initial_state):
+            ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state)
+            return forward(x, dt, A, Bm, Cm, initial_state)
+
+        @staticmethod
+        @once_differentiable
+        def backward(ctx, dy, dstate):
+            return ssd_scan_backward(ctx.saved_tensors, dy, dstate,
+                                     ctx.needs_input_grad)
+
+    return SSDScan
+
+
 def ssd_scan(x, dt, A, Bm, Cm, initial_state=None):
     """x: (B, S, H, P); dt: (B, S, H); A: (H,); Bm/Cm: (B, S, N);
     initial_state: (B, H, P, N) or None (zeros) -> (y (B, S, H, P), final
     state (B, H, P, N) float32).
 
     CPU tensors run ``ssd_scan_plain``; CUDA tensors launch the kernel or
-    raise."""
+    raise, inside the autograd Function where autograd records the
+    call."""
     if not x.is_cuda:
         return ssd_scan_plain(x, dt, A, Bm, Cm, initial_state)
+    if build.needs_grad(x, dt, A, Bm, Cm, initial_state):
+        return _Kernel.apply(x, dt, A, Bm, Cm, initial_state)
+    return _launch(x, dt, A, Bm, Cm, initial_state)
+
+
+def _launch(x, dt, A, Bm, Cm, initial_state=None):
+    """The kernel's launch: checks the inputs, counts the launch."""
     global launches
     _require(x.dim() == 4, f"x must be (B, S, H, P), got {tuple(x.shape)}")
     Bsz, S, H, P = x.shape
@@ -229,3 +281,6 @@ def ssd_scan(x, dt, A, Bm, Cm, initial_state=None):
     build.check(err, "ssd_scan")
     launches += 1
     return y, state
+
+
+_Kernel = function(_launch)

@@ -1,1 +1,2 @@
-"""Command-line entry points."""
+"""Command-line entry points (``serve``, ``train``) and the mesh
+descriptions they use."""

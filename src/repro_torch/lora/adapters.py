@@ -100,3 +100,11 @@ def merge_lora(params, adapter: LoRAAdapter):
 def unmerge_lora(params, adapter: LoRAAdapter):
     return _apply(params, adapter, -1.0)
 
+
+def lora_bytes(cfg: ArchConfig, rank: int, dtype_bytes: int = 2) -> int:
+    """Bytes of one adapter: rank x (Din + Dout) per target projection of
+    every attention (and MoE) layer."""
+    dims = _attn_dims(cfg)
+    n_attn = sum(1 for k in cfg.layer_kinds() if k in ("attn", "moe"))
+    n = sum(rank * (din + dout) for din, dout in dims.values())
+    return n * n_attn * dtype_bytes

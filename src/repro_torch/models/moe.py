@@ -15,11 +15,12 @@ then float32 for the softmax and top-k; the dispatch and combine tensors
 cast to the model dtype before their einsums; the shared experts' gate
 through a float32 sigmoid, cast back.
 
-Routing is global over the call's tokens (one token group).  The
-reference splits tokens into groups by the active sharding policy
-(``distributed/context.py``, not ported); without a policy it uses one
-group, which is what the port does everywhere.  ``serving_capacity_factor``
-is unused, as in the reference.
+The capacity path routes per token group, as the reference does: the
+group count is the active sharding policy's ``token_groups``
+(``distributed/context.py``), and each group of T / G consecutive tokens
+gets its own capacity and expert queues (GShard per-group semantics).
+With no policy installed, or a count that does not divide T, there is one
+group.  ``serving_capacity_factor`` is unused, as in the reference.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Iterator, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.context import get_policy
 from repro_torch.models.layers import dense_init
 
 # the routing decisions of every MoE call while ``record_routing`` is on
@@ -130,23 +132,53 @@ def _shared(p, xt, act, y):
     return y + ys * sg.to(y.dtype)
 
 
+def _token_groups(T: int) -> int:
+    """The installed policy's token groups (dp x seq shards) where they
+    divide the T tokens, else 1 (global routing)."""
+    pol = get_policy()
+    if pol is None:
+        return 1
+    g = pol.token_groups
+    return g if (g > 1 and T % g == 0) else 1
+
+
 def moe_mlp(cfg, p, x, act, *, dropless: bool = False,
             capacity_factor: Optional[float] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y (B, S, D), aux_loss float32 scalar).
 
-    Routing: softmax -> top-k -> renormalise.  Each (token, choice) pair
-    takes the next slot of its expert's queue in token order, then choice
-    order; pairs past the expert's capacity C are dropped (their routed
-    contribution is zero; the shared experts and the residual still serve
-    the token).  ``dropless=True`` (decode) runs ``_moe_dropless``."""
+    Routing: softmax -> top-k -> renormalise.  Within each token group
+    (``_token_groups``), each (token, choice) pair takes the next slot of
+    its expert's queue in token order, then choice order; pairs past the
+    expert's capacity C (sized from the group's tokens) are dropped (their
+    routed contribution is zero; the shared experts and the residual still
+    serve the token).  The load-balance loss is taken over all tokens.
+    ``dropless=True`` (decode) runs ``_moe_dropless``."""
     if dropless:
         return _moe_dropless(cfg, p, x, act)
     B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.top_k
     T = B * S
-    C = moe_capacity(T, cfg, capacity_factor)
+    G = _token_groups(T)
     xt = x.reshape(T, D)
+    parts = [_capacity_group(cfg, p, xg, act, capacity_factor)
+             for xg in xt.chunk(G, dim=0)]
+    y = parts[0][0] if G == 1 else torch.cat([q[0] for q in parts])
+    if _RECORD[0] is not None:
+        _RECORD[0].append(tuple(torch.cat([q[2][i] for q in parts])
+                                for i in range(2)))
+    probs = torch.cat([q[1][0] for q in parts])
+    onehot = torch.cat([q[1][1] for q in parts])
+    y = _shared(p, xt, act, y)
+    return y.reshape(B, S, D), _aux(cfg, probs, onehot)
+
+
+def _capacity_group(cfg, p, xt, act, capacity_factor):
+    """The routed experts of one token group xt (T, D): (y (T, D), (probs
+    (T, E), onehot (T, K, E)) for the load-balance loss, (top_e, keep) for
+    ``record_routing``)."""
+    T, D = xt.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = moe_capacity(T, cfg, capacity_factor)
     probs, top_p, top_e = _route(cfg, p["router"], xt)
 
     # position of each (token, choice) in its expert's queue: an exclusive
@@ -157,20 +189,17 @@ def moe_mlp(cfg, p, x, act, *, dropless: bool = False,
     pos = (pos * flat).sum(dim=-1).reshape(T, K)
     keep = pos < C
     pos = torch.where(keep, pos, 0.0).long()
-    if _RECORD[0] is not None:
-        _RECORD[0].append((top_e, keep))
 
     pos_oh = F.one_hot(pos, C).float()                      # (T, K, C)
     disp = torch.einsum("tke,tkc->tec", onehot * keep[..., None], pos_oh)
     comb = torch.einsum("tke,tkc->tec", onehot * (top_p * keep)[..., None],
                         pos_oh)
-    xin = torch.einsum("tec,td->ecd", disp.to(x.dtype), xt)
+    xin = torch.einsum("tec,td->ecd", disp.to(xt.dtype), xt)
     h = act(torch.einsum("ecd,edf->ecf", xin, p["w_gate"])) * \
         torch.einsum("ecd,edf->ecf", xin, p["w_up"])
     eout = torch.einsum("ecf,efd->ecd", h, p["w_down"])     # (E, C, D)
-    y = torch.einsum("tec,ecd->td", comb.to(x.dtype), eout)
-    y = _shared(p, xt, act, y)
-    return y.reshape(B, S, D), _aux(cfg, probs, onehot)
+    y = torch.einsum("tec,ecd->td", comb.to(xt.dtype), eout)
+    return y, (probs, onehot), (top_e, keep)
 
 
 def _moe_dropless(cfg, p, x, act) -> Tuple[torch.Tensor, torch.Tensor]:

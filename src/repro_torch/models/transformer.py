@@ -41,6 +41,7 @@ from __future__ import annotations
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
@@ -383,6 +384,24 @@ def embed_tokens(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     return x, torch.arange(S, device=x.device)[None, :].expand(B, S)
 
 
+class _Float32Product(torch.autograd.Function):
+    """x @ head with float32 output from bf16 operands (``torch.mm`` with
+    ``out_dtype``, which autograd cannot differentiate).  The backward
+    rounds the float32 logits' gradient to the operands' dtype and runs
+    the two bf16 products of the matmul's gradient."""
+
+    @staticmethod
+    def forward(ctx, x2, head):
+        ctx.save_for_backward(x2, head)
+        return torch.mm(x2, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, head = ctx.saved_tensors
+        dy = dy.to(x2.dtype)
+        return dy @ head.T, x2.T @ dy
+
+
 def unembed(cfg, params, x) -> torch.Tensor:
     """float32 logits over the padded vocab, as the reference's
     ``preferred_element_type`` gives them.  On the card a bf16 product
@@ -391,8 +410,7 @@ def unembed(cfg, params, x) -> torch.Tensor:
     are upcast."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if x.is_cuda and x.dtype != torch.float32:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), head,
-                     out_dtype=torch.float32)
+        y = _Float32Product.apply(x.reshape(-1, x.shape[-1]), head)
         return y.reshape(*x.shape[:-1], y.shape[-1])
     return x.float() @ head.float()
 
@@ -426,14 +444,47 @@ def _layers(cfg: ArchConfig) -> Iterator[Tuple[str, int, int]]:
                 yield kind, i, -1
 
 
+def _unstack(stacked: Params, n: int) -> List[Params]:
+    """Every layer's view of the stacked per-layer params, from one
+    ``unbind`` per leaf: under autograd each leaf's gradient is then one
+    stack of the layers' gradients, where per-layer indexing would add a
+    zero-filled copy of the whole leaf for every layer."""
+    per = [dict() for _ in range(n)]
+    for k, v in stacked.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for d, part in zip(per, parts):
+            d[k] = part
+    return per
+
+
+def _train_layer(cfg, kind, p, x, positions):
+    """One layer of a train forward: (x, aux), aux a float32 scalar (0
+    for a layer without a router)."""
+    if kind in ("attn", "moe"):
+        x, _, aux = attn_layer_fwd(cfg, p, x, positions)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, aux
+    fwd = mamba2.ssm_block_fwd if kind == "ssm" else rec_layer_fwd
+    x, _ = fwd(cfg, p, x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
             mode: str = "train", max_len: Optional[int] = None,
-            last_index=None) -> Tuple[torch.Tensor, Any]:
+            last_index=None, remat: bool = False) -> Tuple[torch.Tensor, Any]:
     """Full-sequence forward.
 
     mode="train":   returns (logits (B,S,V) f32, aux_loss scalar: the MoE
                     layers' load-balance losses summed)
     mode="prefill": returns (last logits (B,V) f32, cache)
+
+    ``remat`` (train mode): each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant), so its activations are
+    recomputed in the backward instead of kept, as the reference's
+    ``jax.checkpoint`` of its layer body does.  The reference's ``unroll``
+    is a ``lax.scan`` knob with no counterpart in an eager layer loop and
+    is not taken.
 
     ``batch``: {"tokens": (B, S)} or {"embeds": (B, S, D)}, optionally
     with "positions" ((B, S), or (B, S, 3) for M-RoPE).
@@ -449,31 +500,38 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
         raise ValueError(f"mode {mode!r}")
     x, positions = embed_tokens(cfg, params, batch)
     B, S = x.shape[:2]
-    want_cache = mode == "prefill"
+    if mode == "train":
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        per_layer = {kind: _unstack(params["blocks"][kind], n)
+                     for kind, n in kind_counts(cfg).items()}
+        for kind, i, _ in _layers(cfg):
+            p = per_layer[kind][i]
+            if remat:
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    _train_layer, cfg, kind, p, x, positions,
+                    use_reentrant=False)
+            else:
+                x, aux = _train_layer(cfg, kind, p, x, positions)
+            aux_total = aux_total + aux
+        x = _apply_norm(cfg, params["final_norm"], x)
+        return unembed(cfg, params, x), aux_total
+
     cap = attn_cache_capacity(cfg, max_len or S)
     # the prompt's states, written layer by layer (pos is set at the end)
-    cache: Cache = (init_cache(cfg, B, max_len or S, x.dtype, x.device)
-                    if want_cache else {})
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    cache: Cache = init_cache(cfg, B, max_len or S, x.dtype, x.device)
     for kind, i, a in _layers(cfg):
         p = layer_params(params["blocks"][kind], i)
         if a >= 0:
-            x, (k, v), aux = attn_layer_fwd(cfg, p, x, positions)
-            if aux is not None:
-                aux_total = aux_total + aux
-            if want_cache:
-                _place_kv(cache["attn"]["k"][a], k, cap)
-                _place_kv(cache["attn"]["v"][a], v, cap)
+            x, (k, v), _ = attn_layer_fwd(cfg, p, x, positions)
+            _place_kv(cache["attn"]["k"][a], k, cap)
+            _place_kv(cache["attn"]["v"][a], v, cap)
         else:
             fwd = mamba2.ssm_block_fwd if kind == "ssm" else rec_layer_fwd
             x, states = fwd(cfg, p, x)
-            if want_cache:      # leaves in the order the block returns
-                for leaf, st in zip(cache[kind], states):
-                    cache[kind][leaf][i].copy_(st)
+            # leaves in the order the block returns
+            for leaf, st in zip(cache[kind], states):
+                cache[kind][leaf][i].copy_(st)
     x = _apply_norm(cfg, params["final_norm"], x)
-
-    if mode == "train":
-        return unembed(cfg, params, x), aux_total
 
     if last_index is not None:
         li = torch.as_tensor(last_index, dtype=torch.int32, device=x.device)

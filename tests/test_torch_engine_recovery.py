@@ -24,6 +24,7 @@ from repro_torch.configs.base import get_arch
 from repro_torch.convert import params_from_jax
 from repro_torch.core import engine as teng
 from repro_torch.launch import serve
+from test_torch_stable_init import stable_init
 
 KEY = jax.random.PRNGKey(3)
 
@@ -32,7 +33,8 @@ KEY = jax.random.PRNGKey(3)
 def _setup(arch, layers):
     jcfg = jget_arch(arch).reduced(n_layers=layers)
     tcfg = get_arch(arch).reduced(n_layers=layers)
-    jparams = JT.init_params(jcfg, KEY)
+    with stable_init():
+        jparams = JT.init_params(jcfg, KEY)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, jparams, tcfg, tparams
 

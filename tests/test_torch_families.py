@@ -9,10 +9,6 @@ numpy.  Logits and caches within 1e-4 after a prefill and six decode
 steps, as ``tests/test_torch_model.py`` holds the dense models; token
 streams under ``quantized_greedy`` equal.
 """
-import contextlib
-import zlib
-from unittest import mock
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +28,7 @@ from repro_torch.launch import serve
 from repro_torch.lora import adapters as tlora
 from repro_torch.models import transformer as TT
 from repro_torch.serving import engine as tserve
+from test_torch_stable_init import stable_init
 
 LOGIT_TOL = 1e-4
 KEY = jax.random.PRNGKey(9)
@@ -43,26 +40,11 @@ def _close(a, b, tol=LOGIT_TOL):
                                np.asarray(b, np.float32), atol=tol, rtol=0)
 
 
-@contextlib.contextmanager
-def _stable_init():
-    """The reference's ``init_params``, ``init_lora`` and ``randomize_lora``
-    fold ``hash(kind)`` (or ``hash((kind, target))``) into their keys, and
-    a str hash changes with each process's hash seed: every process drew
-    other weights, and a few draws put a greedy pick or a router's k-th
-    choice within the two packages' sum-order distance of a tie.  Under
-    crc32 every process draws the same weights."""
-    def stable(x):
-        return zlib.crc32(repr(x).encode())
-    with mock.patch.object(JT, "hash", stable, create=True), \
-            mock.patch.object(jlora, "hash", stable, create=True):
-        yield
-
-
 def _pair(arch, **over):
     jcfg = jget_arch(arch).reduced(**over)
     tcfg = get_arch(arch).reduced(**over)
     assert tcfg.__dict__ == jcfg.__dict__
-    with _stable_init():
+    with stable_init():
         jparams = JT.init_params(jcfg, KEY)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, jparams, tcfg, tparams
@@ -219,7 +201,7 @@ def test_moe_lora_targets_the_moe_stack():
     assert set(own.blocks["moe"]) == set(tlora.TARGETS)
     assert own.blocks["moe"]["wq"]["A"].shape == (tcfg.n_layers,
                                                   tcfg.d_model, 4)
-    with _stable_init():
+    with stable_init():
         jad = jlora.randomize_lora(jax.random.PRNGKey(2), jlora.init_lora(
             jax.random.PRNGKey(1), jcfg, rank=4))
     tad = tlora.LoRAAdapter(jad.name, jad.rank, jad.alpha, params_from_jax(
@@ -245,7 +227,7 @@ def test_moe_serving_engine_matches_reference():
     streams, finishing order, adapter switches and hot-path counts equal
     the reference's."""
     jcfg, jparams, tcfg, tparams = _pair("qwen2-moe-a2.7b", n_layers=4)
-    with _stable_init():
+    with stable_init():
         jad = jlora.randomize_lora(jax.random.PRNGKey(4), jlora.init_lora(
             jax.random.PRNGKey(3), jcfg, rank=4, name="lora0"))
     tad = tlora.LoRAAdapter(jad.name, jad.rank, jad.alpha, params_from_jax(

@@ -35,8 +35,12 @@ def test_import_loads_no_jax_and_no_reference():
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 20
-    assert "repro_torch.distributed.pipeline" in \
-        out.stdout.splitlines()[-1].split()
+    walked = out.stdout.splitlines()[-1].split()
+    for name in ("distributed.pipeline", "distributed.context",
+                 "distributed.shardings", "launch.mesh", "launch.train",
+                 "training.optimizer", "training.train", "training.data",
+                 "training.checkpoint"):
+        assert "repro_torch." + name in walked, name
 
 
 def _banned(name: str) -> bool:

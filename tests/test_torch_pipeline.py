@@ -45,6 +45,7 @@ from repro_torch.core import engine as teng
 from repro_torch.distributed import pipeline as P
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import transformer as T
+from test_torch_stable_init import stable_init
 from repro_torch.serving.engine import (ServeRequest, ServingEngine,
                                         quantized_greedy)
 
@@ -76,6 +77,8 @@ _ORACLE = textwrap.dedent("""
                                             build_pipeline_prefill_seqchunk,
                                             stage_mesh)
     from repro.models import transformer as T
+    sys.path.insert(0, "tests")
+    from test_torch_stable_init import stable_init
 
     B, S, MAX_LEN = %d, %d, %d
     out = {}
@@ -96,7 +99,8 @@ _ORACLE = textwrap.dedent("""
     tags = %r
     for name, (arch, over, gpipe, seqchunk) in %r.items():
         cfg = get_arch(arch).reduced(n_layers=4, vocab_size=256, **over)
-        params = T.init_params(cfg, jax.random.PRNGKey(0), jnp.float32)
+        with stable_init():
+            params = T.init_params(cfg, jax.random.PRNGKey(0), jnp.float32)
         put(name + "/params/", params)
         for nd in (1, 2):
             mesh = stage_mesh(4, nd)
@@ -395,7 +399,8 @@ def test_enable_pipeline_prefill_gates(eight_devices, monkeypatch):
 
 def _jax_pair(arch):
     jcfg = jget_arch(arch).reduced(n_layers=4, vocab_size=256)
-    jparams = JT.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    with stable_init():
+        jparams = JT.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, jparams, _cfg(arch), tparams
 

@@ -25,6 +25,7 @@ from repro_torch.convert import params_from_jax, to_numpy
 from repro_torch.core import kv_reconstruct as trec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import transformer as TT
+from test_torch_stable_init import stable_init
 
 LOGIT_TOL = 1e-4          # port against reference
 FRESH_TOL = 2e-3          # rebuilt against a fresh prefill (the reference's)
@@ -36,7 +37,8 @@ def _setup(arch, layers, window=None):
     kw = {} if window is None else {"attn_window": window}
     jcfg = jget_arch(arch).reduced(n_layers=layers, **kw)
     tcfg = get_arch(arch).reduced(n_layers=layers, **kw)
-    jparams = JT.init_params(jcfg, KEY)
+    with stable_init():
+        jparams = JT.init_params(jcfg, KEY)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, jparams, tcfg, tparams
 
