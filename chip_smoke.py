@@ -40,7 +40,8 @@ Phases (any failure exits non-zero and prints no result line):
    the same function (``library_ms``, a yardstick the port never calls;
    none does for the two scans) and its bound: the larger of the bytes it
    must move over 3.35 TB/s and its operations over the peak rate of their
-   type (989 TFLOP/s bf16, 67 TFLOP/s float32).  Decode and flash attention are
+   type (989 TFLOP/s bf16, 67 TFLOP/s float32), both counted by the kernel
+   module's ``cost()`` (``launch/rooflines.py`` holds the peaks).  Decode and flash attention are
    timed at opt-1.3b's shapes and again at recurrentgemma-2b's (decode
    with its split count printed); the SSD and RG-LRU scans at one
    512-token prefill and again at a 64-token one (a short serving prompt).
@@ -244,6 +245,31 @@ Phases (any failure exits non-zero and prints no result line):
    ``train_launches_by_part`` for every kernel, and ``backward_ms``,
    ``backward_route`` and ``train_timing`` (10a's times) for the three
    on the train path.
+11. The dry run and rooflines (``launch/dryrun.py``,
+   ``launch/rooflines.py``), ``build_pipeline_cell`` and the examples:
+   - 11a: ``dryrun --all --skip-cost`` over both production meshes, then
+     the cost of pipeboost-opt-1.3b, qwen3-1.7b and recurrentgemma-2b at
+     train_4k, prefill_32k and decode_32k and one ``--pipeline`` cell
+     (qwen3-1.7b prefill_32k), on a pool of worker processes (meta
+     DTensors over a fake process group: nothing on the card); every
+     applicable cell must pass; the wall time is printed;
+   - 11b: the dry run on a one-card mesh held against the card, at phase
+     10b's train step (opt-1.3b, 8 x 512, bf16, remat) and at a replayed
+     decode step (opt-1.3b, 4 slots, max_len 1024; the peak statistics
+     reset after the capture and read around 20 replays): its argument
+     bytes within 1% of the real state's, its peak per device within
+     0.5-2x of ``torch.cuda.max_memory_allocated``, its roofline time at
+     most 105% of the measured step (a bound above the measurement is a
+     counting error), each printed with the card's name and power limit;
+   - 11c: ``build_pipeline_cell`` at opt-1.3b's full width and depth (24
+     layers, 8 stages as 8 streams of one card, B 8, S 512) against
+     ``forward``: float32 within 1e-4 of max |logit|, bf16 within 2.5%,
+     its flash launches counted (24 layers x 2 microbatches);
+   - 11d: the four ``examples/torch_*.py`` on the card, in this process:
+     each prints its equalities as true; each one's wall time printed.
+   The kernels line gains ``phase11_launches`` and
+   ``phase11_launches_by_part`` (11c, 11d); a ``{"dryrun": ...}`` line
+   before it holds phase 11's numbers.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -265,8 +291,6 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 ATTN_TOL = 2e-2
 SSD_BF16_REL = 2.0 ** -8     # SSD bf16 y: share of |plain y| ...
 SSD_BF16_MEAN = 1e-2         # ... plus this share of mean |plain y|
@@ -341,10 +365,11 @@ def n_copies(nbytes: int) -> int:
     return max(1, min(16, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
 
 
-def bound(nbytes: float, flops: float, dtype: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(cost):
+    """(ms, "bytes" or "operations") of a kernel module's ``cost()``."""
+    from repro_torch.launch import rooflines
+    flops, moved, dtype = cost
+    return rooflines.bound(moved, flops, dtype)
 
 
 def nbytes(*ts) -> int:
@@ -495,12 +520,9 @@ def check_decode(torch, ops, dev, results):
             lambda a=a: F.scaled_dot_product_attention(
                 a[0], a[1], a[2], attn_mask=a[3], enable_gqa=Hq != Hkv)
             for a in lib_sets], 50)
-        valid = sum(lens)
-        moved = (nbytes(x["q"], x["kn"], x["vn"], x["lens"], x["sm"])
-                 + 2 * valid * Hkv * d * 2                 # valid K/V rows
-                 + B * Hq * d * 2)                         # out
-        flops = 4 * Hq * d * (valid + (B if fold else 0))
-        b_ms, b_by = bound(moved, flops, "bfloat16")
+        b_ms, b_by = bound(dec.cost(
+            batch=B, heads=Hq, kv_heads=Hkv, head_dim=d, cache_len=C,
+            valid_rows=sum(lens), fold=fold, slot_mask=x["sm"] is not None))
         n = dec.decode_splits(B, Hkv, C, d)
         print(f"  decode {label}: {n} splits of {-(-C // n)} rows x {Hkv} "
               f"KV heads x {B} rows = {n * Hkv * B} CTAs, then a merge "
@@ -525,6 +547,7 @@ FLASH_F32_TOL = 2e-5          # float32 flash at head dim 80: absolute
 
 
 def check_flash(torch, ops, dev, results):
+    from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=dev).manual_seed(11)
     bf = torch.bfloat16
 
@@ -603,11 +626,8 @@ def check_flash(torch, ops, dev, results):
             lambda a=a: F.scaled_dot_product_attention(
                 a[0], a[1], a[2], is_causal=causal, enable_gqa=Hq != Hkv)
             for a in lib_sets], 50)
-        # (q, k) pairs per head
-        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
-        moved = 2 * nbytes(sets[0][0]) + nbytes(sets[0][1], sets[0][2])
-        flops = 4 * B * Hq * d * pairs
-        b_ms, b_by = bound(moved, flops, "bfloat16")
+        b_ms, b_by = bound(fa.cost(batch=B, q_len=Sq, kv_len=Sk, heads=Hq,
+                                   kv_heads=Hkv, head_dim=d, causal=causal))
         print(f"  flash timed {label} {spec} "
               f"{'causal' if causal else 'non-causal'}: kernel {ms:.4f} ms "
               f"(host-paced {paced_ms:.4f} ms), plain {plain_ms:.4f} ms, "
@@ -655,9 +675,7 @@ def check_lora(torch, ops, dev, results):
     library_ms, _ = time_ms(torch, "lora baddbmm",
                             [lambda: torch.baddbmm(W, A16, B16, alpha=scale)],
                             20)
-    moved = 2 * nbytes(W) + nbytes(A, B)
-    flops = L * D * D * (2 * r + 1)
-    b_ms, b_by = bound(moved, flops, "float32")
+    b_ms, b_by = bound(lm.cost(layers=L, d_in=D, d_out=D, rank=r))
     print(f"  lora timed: kernel {ms:.4f} ms (host-paced {paced_ms:.4f} "
           f"ms), plain {plain_ms:.4f} ms, baddbmm {library_ms:.4f} ms, bound "
           f"{b_ms:.4f} ms ({b_by})")
@@ -667,6 +685,7 @@ def check_lora(torch, ops, dev, results):
 
 
 def check_ssd(torch, ops, dev, results):
+    from repro_torch.kernels import ssd_scan as ssd
     F = torch.nn.functional
     g = torch.Generator(device=dev).manual_seed(13)
     H, P, N = 48, 64, 128                    # mamba2-780m
@@ -731,19 +750,9 @@ def check_ssd(torch, ops, dev, results):
         with ops.plain_versions():
             plain_ms, _ = time_ms(torch, f"ssd plain S={S}", [
                 lambda s=s: ops.ssd_scan(*s) for s in sets], 5)
-        # bytes: each input read once, y and the final state written
-        # once; operations: per chunk of q rows (64, the SSD kernel's
-        # chunk), the causal pairs of C B^T once, and per head G x over
-        # the pairs, C state and the state update x^T B
-        moved = (2 * nbytes(x[0]) + nbytes(x[1], x[2], x[3], x[4])
-                 + B * H * P * N * 4)
-        flops = 0
-        for t0 in range(0, S, 64):
-            q = min(64, S - t0)
-            pairs = q * (q + 1) // 2
-            flops += B * (2 * N * pairs
-                          + H * (2 * P * pairs + 4 * q * P * N))
-        b_ms, b_by = bound(moved, flops, "bfloat16")
+        flops, moved, _ = c = ssd.cost(batch=B, seq=S, heads=H, head_dim=P,
+                                       state=N)
+        b_ms, b_by = bound(c)
         print(f"  ssd timed case B={B} S={S} H={H} P={P} N={N}: kernel "
               f"{ms:.4f} ms (host-paced {paced_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, no library call, bound {b_ms:.4f} ms "
@@ -808,11 +817,8 @@ def check_rglru(torch, ops, dev, results):
         with ops.plain_versions():
             plain_ms, _ = time_ms(torch, f"rglru plain S={S}", [
                 lambda s=s: ops.rglru_scan(*s) for s in sets], 3)
-        # bytes: log_a and bx read once, y and h_T written once;
-        # operations: one exp and one multiply-add per element
-        moved = nbytes(*x) + B * S * W * 4 + B * W * 4
-        flops = 3 * B * S * W
-        b_ms, b_by = bound(moved, flops, "float32")
+        _, moved, _ = c = rg.cost(batch=B, seq=S, width=W)
+        b_ms, b_by = bound(c)
         print(f"  rglru timed case B={B} S={S} W={W}: kernel {ms:.4f} ms "
               f"(host-paced {paced_ms:.4f} ms), plain {plain_ms:.4f} ms, no "
               f"library call, bound {b_ms:.4f} ms ({b_by}; "
@@ -1918,6 +1924,7 @@ def moe_replayed_step(torch, res):
     routed bound is the least a step of these 4 tokens needs: the same
     without the routed experts that no token of a layer picks, counted
     from one eager step's routing on a copy of the cache."""
+    from repro_torch.launch import rooflines
     import statistics
     import numpy as np
     from repro_torch.models import moe
@@ -1953,8 +1960,8 @@ def moe_replayed_step(torch, res):
         * kv.element_size()
     moved = (_params_bytes(torch, p["blocks"]) + _params_bytes(
         torch, p["lm_head"]) + kv_bytes)
-    bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    expert_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = moved / rooflines.HBM_BW * 1e3
+    expert_ms = expert_bytes / rooflines.HBM_BW * 1e3
     # one routed expert of one layer: its gate, up and down weights
     one_expert = sum(mlp[k][0, 0].numel() * mlp[k].element_size()
                      for k in ("w_gate", "w_up", "w_down"))
@@ -1964,7 +1971,7 @@ def moe_replayed_step(torch, res):
     picked = [int(torch.unique(top_e).numel()) for top_e, _ in rec]
     require(len(picked) == cfg.n_layers, f"{len(picked)} routed layers")
     routed = moved - sum(cfg.n_experts - n for n in picked) * one_expert
-    routed_ms = routed / HBM_BYTES_PER_S * 1e3
+    routed_ms = routed / rooflines.HBM_BW * 1e3
     print(f"  9a replayed decode step, 4 live slots: {ms:.3f} ms (median of "
           f"20, min {min(times):.3f}); dropless weight-read bound "
           f"{bound_ms:.3f} ms ({moved / 1e9:.2f} GB: block weights with "
@@ -2553,6 +2560,7 @@ def train_step_run(torch, ops, dev):
     the rematerialisation)."""
     from repro_torch.configs.base import get_arch
     from repro_torch.core import analytic
+    from repro_torch.launch import rooflines
     from repro_torch.launch import train
     steps, B, S = 10, 8, 512
     argv = ["--arch", TRAIN_ARCH, "--steps", str(steps), "--batch", str(B),
@@ -2586,8 +2594,10 @@ def train_step_run(torch, ops, dev):
                                   "(3 x forward_flops)",
                executed_flops_with_remat=executed,
                model_flops_share_of_bf16_peak=model_flops / step_s
-               / PEAK_FLOPS["bfloat16"],
-               flash_launches_per_step=counts["flash_attention"] // steps)
+               / rooflines.PEAK_FLOPS["bfloat16"],
+               flash_launches_per_step=counts["flash_attention"] // steps,
+               state_bytes=res.state_bytes,
+               peak_memory_bytes=res.peak_memory_bytes)
     print(f"  10b {TRAIN_ARCH} ({res.n_params / 1e9:.3f} B params) {B} x "
           f"{S}: losses {' '.join(f'{x:.4f}' for x in losses)}; step "
           f"{out['step_ms_median']:.1f} ms (median of steps 3-{steps}), "
@@ -2712,6 +2722,287 @@ def checkpoint_resume(torch, ops, dev):
                         restore_s=b.ckpt_restore_s,
                         resumed_equal=b.losses == a.losses[3:],
                         resumed_max_rel=rel)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the dry run and rooflines, build_pipeline_cell, the examples
+# ---------------------------------------------------------------------------
+
+COST_ARCHS = ("pipeboost-opt-1.3b", "qwen3-1.7b", "recurrentgemma-2b")
+COST_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+PIPE_CELL = ("qwen3-1.7b", "prefill_32k")
+DRYRUN_WORKERS = 6          # of the host's 8 cores; the card idles meanwhile
+DRYRUN_ARG_TOL = 0.01       # dry-run argument bytes against the real state
+DRYRUN_PEAK = (0.5, 2.0)    # dry-run peak over the card's peak
+ROOFLINE_SHARE_MAX = 1.05   # roofline time over the measured step time
+PIPE_CELL_F32_TOL = 1e-4    # belt logits: share of max |forward logit|
+EXAMPLES = {                # example -> (line marker, lines expected)
+    "torch_quickstart": (("partial-load tokens == full-load tokens: ", 1),
+                         ("tokens still equal: ", 1)),
+    "torch_recovery_drill": (("exact=", 4),),
+    "torch_serve_lora": (("every request served its 5 tokens: ", 1),),
+    "torch_train_e2e": (("uninterrupted losses (rel 1e-5): ", 1),),
+}
+
+
+def _dryrun_cell(job):
+    """One dry-run cell, in a worker process: (job, result, error)."""
+    arch, shape, multi_pod, skip_cost, pipeline = job
+    from repro_torch.launch import dryrun
+    try:
+        return job, dryrun.run_cell(arch, shape, multi_pod=multi_pod,
+                                    skip_cost=skip_cost,
+                                    pipeline_mode=pipeline), None
+    except Exception as e:          # reported, and the phase then fails
+        return job, None, f"{type(e).__name__}: {e}"
+
+
+def dryrun_sweep():
+    """11a: ``dryrun --all --skip-cost`` over both meshes, the cost of
+    three archs at three shapes, and one pipeline cell, over a pool of
+    worker processes; every applicable cell must pass."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from repro_torch.configs.base import cells
+    jobs = [(a, s, mp, True, False) for mp in (True, False)
+            for a, s, ok, _ in cells() if ok]
+    jobs.sort(key=lambda j: (j[1] != "train_4k", not j[2]))  # slow first
+    jobs += [(a, s, False, False, False) for a in COST_ARCHS
+             for s in COST_SHAPES]
+    jobs.append(PIPE_CELL + (False, False, True))
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=DRYRUN_WORKERS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        done = list(pool.map(_dryrun_cell, jobs))
+    wall = time.perf_counter() - t0
+    failed = [(j, e) for j, _, e in done if e]
+    for j, e in failed:
+        print(f"  [FAIL] {j}: {e}")
+    require(not failed, f"11a: {len(failed)} dry-run cells failed")
+    sweep = [r for j, r, _ in done if j[3]]
+    peaks = [r["memory"]["peak_per_device"] / 2 ** 30 for r in sweep]
+    replicated = sorted({op for r in sweep for op in r["replicated_ops"]})
+    print(f"  11a dryrun --all --skip-cost over both meshes: {len(sweep)} "
+          f"cells, peak per device {min(peaks):.2f}-{max(peaks):.2f} GiB; "
+          f"ops run replicated: {replicated}")
+    costed = {}
+    for j, r, _ in done:
+        if j[3]:
+            continue
+        c = r["cost"]["roofline"]
+        tag = f"{j[0]} {j[1]}" + (" --pipeline" if j[4] else "")
+        costed[tag] = dict(peak_per_device=r["memory"]["peak_per_device"],
+                           **{k: c[k] for k in ("compute_s", "memory_s",
+                                                "collective_s",
+                                                "dominant")})
+        print(f"  11a {tag} on {r['mesh']}: peak/dev "
+              f"{r['memory']['peak_per_device'] / 2 ** 30:.2f} GiB, compute "
+              f"{c['compute_s'] * 1e3:.2f} ms, memory "
+              f"{c['memory_s'] * 1e3:.2f} ms, collective "
+              f"{c['collective_s'] * 1e3:.2f} ms ({c['dominant']})")
+    print(f"  11a {len(jobs)} dry runs in {wall:.1f} s wall "
+          f"({DRYRUN_WORKERS} worker processes)")
+    return {"cells": len(jobs), "wall_s": wall, "costed": costed,
+            "replicated_ops": replicated}
+
+
+def _hold_dryrun(tag, dr, real_args, real_peak, measured_s, smi):
+    """11b's three comparisons of one dry-run point with the card."""
+    mem = dr["memory"]
+    arg_err = abs(mem["argument_bytes"] - real_args) / real_args
+    ratio = mem["peak_per_device"] / real_peak
+    roof = dr["cost"]["roofline"]
+    total = max(roof["compute_s"], roof["memory_s"], roof["collective_s"])
+    share = total / measured_s
+    print(f"  11b {tag}: argument bytes {mem['argument_bytes']} against "
+          f"the real {real_args} ({100 * arg_err:.3f}% apart); peak per "
+          f"device {mem['peak_per_device'] / 2 ** 30:.3f} GiB against the "
+          f"card's {real_peak / 2 ** 30:.3f} GiB (ratio {ratio:.3f}); "
+          f"roofline {total * 1e3:.3f} ms ({roof['dominant']}) against "
+          f"the measured "
+          f"{measured_s * 1e3:.3f} ms: {100 * share:.1f}% [{smi}]")
+    require(arg_err <= DRYRUN_ARG_TOL, f"11b {tag}: argument bytes "
+            f"{mem['argument_bytes']} vs {real_args}")
+    require(DRYRUN_PEAK[0] <= ratio <= DRYRUN_PEAK[1],
+            f"11b {tag}: peak ratio {ratio}")
+    require(share <= ROOFLINE_SHARE_MAX, f"11b {tag}: the roofline "
+            f"{total} s exceeds the measured {measured_s} s")
+    return dict(argument_bytes=mem["argument_bytes"], real_bytes=real_args,
+                peak_bytes=mem["peak_per_device"], card_peak_bytes=real_peak,
+                peak_ratio=ratio, roofline_ms=total * 1e3,
+                measured_ms=measured_s * 1e3, roofline_share=share,
+                dominant=roof["dominant"])
+
+
+def dryrun_vs_card(torch, dev, train_step, smi):
+    """11b: the dry run on a one-card mesh at phase 10b's train step and
+    at a replayed decode step (opt-1.3b, 4 slots, max_len 1024), held
+    against the card's bytes, peak memory and time."""
+    import statistics
+    import numpy as np
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import ServeRequest, ServingEngine
+    one = Mesh(("data", "model"), (1, 1))
+    out = {}
+    B, S = train_step["batch"], train_step["seq"]
+    dr = dryrun.run_cell(TRAIN_ARCH, f"train_{S}", mesh=one,
+                         shape=ShapeConfig(f"train_{S}", S, B, "train"))
+    out["train"] = _hold_dryrun(
+        f"train {TRAIN_ARCH} {B} x {S}", dr,
+        train_step["state_bytes"] + 2 * B * S * 4,
+        train_step["peak_memory_bytes"],
+        train_step["step_ms_median"] / 1e3, smi)
+
+    cfg = get_arch(TRAIN_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    params = T.init_params(cfg, gen, device=dev)
+    srv = ServingEngine(cfg, params, n_slots=4, max_len=1024)
+    rng = np.random.default_rng(11)
+    for i, L in enumerate(rng.integers(64, 513, size=4)):
+        srv.submit(ServeRequest(i, rng.integers(0, cfg.vocab_size,
+                                                size=int(L)),
+                                max_new_tokens=1000))
+    for _ in range(3):
+        srv.step()                           # admissions, the capture
+    b = srv.batcher
+    require(len(b.active) == 4 and b.compile_stats()["decode_compiles"]
+            == 1, "11b: the decode step is not captured over 4 slots")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b._graph.replay()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    real = (_params_bytes(torch, b.params) + _params_bytes(torch, b.cache)
+            + b._dev_tokens.numel() * b._dev_tokens.element_size())
+    dr = dryrun.run_cell(TRAIN_ARCH, "decode_1024", mesh=one,
+                         shape=ShapeConfig("decode_1024", 1024, 4,
+                                           "decode"))
+    out["decode"] = _hold_dryrun(f"replayed decode {TRAIN_ARCH} 4 x 1024",
+                                 dr, real, peak, statistics.median(times),
+                                 smi)
+    del srv, b, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_cell_on_card(torch, ops, dev):
+    """11c: ``build_pipeline_cell`` at opt-1.3b's full width and depth
+    (24 layers, 8 stages as 8 streams of one card, B 8, S 512) against
+    ``forward``: float32 within 1e-4 of max |logit|, bf16 within 2.5%
+    with its flash launches counted."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.distributed.pipeline import (build_pipeline_cell,
+                                                  stage_mesh)
+    from repro_torch.launch.mesh import pipeline_stages_for
+    from repro_torch.models import transformer as T
+    shape = ShapeConfig("prefill_512", 512, 8, "prefill")
+    base = get_arch(PIPE_ARCH)
+    n_stages = pipeline_stages_for(base.n_layers)
+    mesh = stage_mesh(n_stages, 1, devices=[dev] * n_stages)
+    counts, out = {}, {}
+    for dt, tol in (("float32", PIPE_CELL_F32_TOL),
+                    ("bfloat16", LOGIT_REL_TOL)):
+        cfg = dataclasses.replace(base, dtype=dt)
+        fn, (ps, bs) = build_pipeline_cell(cfg, shape, mesh=mesh)
+        gen = torch.Generator(device=dev).manual_seed(12)
+        params = T.init_params(cfg, gen, device=dev)
+        want = {k: tuple(v.shape) for k, v in
+                zip(_flat_keys(ps), _flat_leaves(ps))}
+        got = {k: tuple(v.shape) for k, v in
+               zip(_flat_keys(params), _flat_leaves(params))}
+        require(want == got, "11c: the cell's params structure differs")
+        toks = torch.randint(0, cfg.vocab_size, tuple(bs["tokens"].shape),
+                             generator=gen, device=dev)
+        ops.reset_launch_counts()
+        logits = fn(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        c = ops.launch_counts()
+        ref = T.forward(cfg, params, {"tokens": toks}, mode="prefill")[0]
+        err = ((logits - ref).abs().max() / ref.abs().max()).item()
+        print(f"  11c build_pipeline_cell {cfg.name} {dt}: mesh "
+              f"{fn.mesh.shape} described, belt of {n_stages} streams on "
+              f"one card, {fn.n_micro} microbatches of "
+              f"{shape.global_batch // fn.n_micro} x {shape.seq_len}; "
+              f"max|belt - forward| / max|forward| = {err:.3e} (limit "
+              f"{tol:g}); flash launches {c['flash_attention']}")
+        require(err <= tol, f"11c {dt}: {err} > {tol}")
+        require(c["flash_attention"] == cfg.n_layers * fn.n_micro
+                and sum(c.values()) == c["flash_attention"],
+                f"11c {dt} launches {c}")
+        counts[f"11c_{dt}"] = c
+        out[dt] = dict(rel_err=err, flash_launches=c["flash_attention"])
+        del params, logits, ref
+        torch.cuda.empty_cache()
+    return counts, out
+
+
+def _flat_keys(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [k for key in sorted(tree)
+                for k in _flat_keys(tree[key], f"{prefix}/{key}")]
+    return [prefix]
+
+
+def _flat_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in _flat_leaves(tree[key])]
+    return [tree]
+
+
+class _Tee:
+    """Writes to every stream it holds."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, s):
+        for st in self.streams:
+            st.write(s)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def examples_on_card(torch, ops):
+    """11d: the four examples' ``main`` on the card, in this process;
+    each must print its equalities as true."""
+    import importlib.util
+    import io
+    counts, times = {}, {}
+    for name, marks in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        print(f"  11d examples/{name}.py --device cuda")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        counts[f"11d_{name}"] = ops.launch_counts()
+        lines = buf.getvalue().splitlines()
+        for mark, n in marks:
+            hit = [ln for ln in lines if mark in ln]
+            ok = all((mark + "True") in ln for ln in hit)
+            require(len(hit) == n and ok,
+                    f"11d {name}: {n} '{mark}True' lines expected, got {hit}")
+        print(f"  11d {name}: {times[name]:.1f} s, launches "
+              f"{counts[f'11d_{name}']}")
+        torch.cuda.empty_cache()
+    return counts, times
 
 
 def main() -> int:
@@ -2877,6 +3168,16 @@ def main() -> int:
     train_step["checkpoint_10d"] = ckpt
     print(f"  phase 10 took {time.perf_counter() - t10:.1f} s; 10a "
           f"comparison launches {grad_launches}")
+    print("== phase 11: the dry run, build_pipeline_cell, the examples")
+    t11 = time.perf_counter()
+    dry = {"11a_sweep": dryrun_sweep()}
+    dry["11b_vs_card"] = dryrun_vs_card(torch, dev, train_step, smi)
+    phase11_parts, dry["11c_pipeline_cell"] = pipeline_cell_on_card(
+        torch, ops, dev)
+    ex_counts, dry["11d_example_s"] = examples_on_card(torch, ops)
+    phase11_parts.update(ex_counts)
+    dry["phase_11_s"] = time.perf_counter() - t11
+    print(f"  phase 11 took {dry['phase_11_s']:.1f} s")
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     kernels = []
@@ -2924,6 +3225,12 @@ def main() -> int:
         entry["train_launches"] = sum(c[name] for c in train_parts.values())
         entry["train_launches_by_part"] = {
             part: c[name] for part, c in train_parts.items()}
+        # launches of phase 11's card runs (11c the pipeline cell, 11d
+        # the examples); the dry run of 11a and 11b launches nothing
+        entry["phase11_launches"] = sum(c[name]
+                                        for c in phase11_parts.values())
+        entry["phase11_launches_by_part"] = {
+            part: c[name] for part, c in phase11_parts.items()}
         if name in train_results:
             t = train_results[name]
             entry["backward_ms"] = t["backward_ms"]
@@ -2934,6 +3241,7 @@ def main() -> int:
     print(json.dumps({"pipeline_belt_timings": belt_ms}))
     print(json.dumps({"moe_decode_step": moe_step}))
     print(json.dumps({"train_step": train_step}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -591,6 +591,7 @@ class PipeBoostEngine:
     def _revive_devices(self, device_ids: Sequence[int]) -> None:
         """Crashed devices come back alive with empty HBM (lock held)."""
         for i in device_ids:
+            # pbcheck: disable=R3 (both callers, revive and repartition, hold _load_lock around this helper)
             d = self.devices[i]
             if d.alive:
                 continue

@@ -1,11 +1,11 @@
 """Activation-sharding policy (the port of ``repro/distributed/context.py``).
 
-The reference's model code calls ``constrain(x, role)`` at layer
-boundaries, which pins an activation to the installed policy's sharding,
-and its MoE routes tokens per device-local group, the number of groups
-coming from that policy.  The port runs on one card: ``constrain`` is a
-no-op here, and only the policy's metadata (its token groups and the spec
-of each role) is applied.
+The model code calls ``constrain(x, role)`` at layer boundaries, where
+the reference does, which pins an activation to the installed policy's
+sharding, and its MoE routes tokens per device-local group, the number of
+groups coming from that policy.  The port runs on one card: ``constrain``
+returns a plain tensor as it is, and redistributes only a DTensor (the dry
+run's, ``launch/dryrun.py``) to the policy's spec for its role.
 
 Roles:
   act    (B, S, D)   — residual stream:      (dp, seq, None)
@@ -92,7 +92,21 @@ class use_policy:
 
 
 def constrain(x, role: str = "act"):
-    """The reference pins ``x`` to the policy's sharding for ``role``.  On
-    one device there is nothing to pin: ``x`` is returned as it is, with a
-    policy installed or not."""
-    return x
+    """``x`` pinned to the installed policy's sharding for ``role``: a
+    DTensor is redistributed to it; a plain tensor, or any tensor with no
+    policy installed, is returned as it is."""
+    pol = get_policy()
+    if pol is None:
+        return x
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    names = pol.mesh.axis_names
+    pl = [Replicate()] * len(names)
+    for d, entry in enumerate(pol.spec(role, x.ndim)):
+        for a in (entry if isinstance(entry, tuple) else
+                  (() if entry is None else (entry,))):
+            pl[names.index(a)] = Shard(d)
+    if list(pl) == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)

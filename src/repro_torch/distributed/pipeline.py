@@ -44,7 +44,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2, transformer
 
@@ -446,3 +446,58 @@ def build_pipeline_prefill_seqchunk(cfg: ArchConfig, *, n_stages: int,
         return logits
 
     return f
+
+
+def build_pipeline_cell(cfg: ArchConfig, shape: ShapeConfig, *,
+                        total_chips: int = 256, n_micro: Optional[int] = None,
+                        seq_chunk: bool = False,
+                        mesh: Optional[StageMesh] = None
+                        ) -> Tuple[Callable, tuple]:
+    """Dry-run entry: returns (belt fn, (params, batch) as meta tensors)
+    for the pipeline prefill of one (arch x shape) cell.
+
+    The cell's ('data', 'stage') mesh is ``make_pipeline_mesh``'s over
+    ``total_chips``: ``pipeline_stages_for(n_layers)`` stages, the data
+    rows halved until they divide the batch (idle replicas rather than an
+    unshardable batch).  The belt runs over ``mesh`` when one is given
+    (on one card: a stage a stream), else over a grid of meta devices of
+    the described shape.  ``fn.mesh`` is the description, ``fn.n_micro``
+    the microbatches (GPipe) or chunks (sequence-chunk belt) it runs."""
+    from repro_torch.launch.mesh import (make_pipeline_mesh,
+                                         pipeline_stages_for)
+    if shape.kind != "prefill":
+        raise ValueError("pipeline lowering targets the prefill (TTFT) step")
+    n_stages = pipeline_stages_for(cfg.n_layers)
+    B = shape.global_batch
+    n_data = total_chips // n_stages
+    while n_data > 1 and B % n_data != 0:
+        n_data //= 2        # idle replicas rather than unshardable batch
+    described = make_pipeline_mesh(n_stages, total=n_data * n_stages)
+    n_micro = n_micro or max(2, min(8, B // max(1, n_data)))
+    if mesh is None:
+        mesh = stage_mesh(n_stages, n_data,
+                          devices=[torch.device("meta")] * described.size)
+
+    meta = torch.device("meta")
+    params_struct = transformer.init_params(cfg, torch.Generator(),
+                                            torch.bfloat16, meta)
+    if cfg.family in ("audio", "vlm"):
+        batch_struct = {"embeds": torch.empty(
+            (B, shape.seq_len, cfg.d_model), dtype=torch.bfloat16,
+            device=meta)}
+    else:
+        batch_struct = {"tokens": torch.empty((B, shape.seq_len),
+                                              dtype=torch.int32,
+                                              device=meta)}
+
+    if seq_chunk:
+        n_micro = max(n_stages, 8)
+        f = build_pipeline_prefill_seqchunk(
+            cfg, n_stages=n_stages, n_chunks=n_micro, mesh=mesh,
+            seq_len=shape.seq_len)
+    else:
+        f = build_pipeline_prefill(cfg, n_stages=n_stages, n_micro=n_micro,
+                                   mesh=mesh, seq_len=shape.seq_len)
+    f.mesh = described
+    f.n_micro = n_micro
+    return f, (params_struct, batch_struct)

@@ -51,6 +51,30 @@ MAX_SPLITS = 1024     # the kernel's cap
 launches = 0          # wrapper calls that launched the kernels (one each)
 
 
+def _itemsize(dtype: str) -> int:
+    return {"bfloat16": 2, "float16": 2, "float32": 4}[dtype]
+
+
+def cost(*, batch: int, heads: int, kv_heads: int, head_dim: int,
+         cache_len: int, valid_rows: Optional[int] = None, fold: bool = True,
+         slot_mask: bool = False, dtype: str = "bfloat16"):
+    """(operations, bytes, peak dtype) of one call on a (batch, kv_heads,
+    cache_len, head_dim) cache: q, the new token's K/V (``fold``), lens
+    and the slot mask read once, only the ``valid_rows`` cache rows the
+    lengths let in (all ``batch * cache_len`` when not given: the run's
+    data decides), the output written once; two products of ``head_dim``
+    per (query head, visible key)."""
+    it = _itemsize(dtype)
+    valid = batch * cache_len if valid_rows is None else valid_rows
+    q = batch * heads * head_dim * it
+    new = 2 * batch * kv_heads * head_dim * it if fold else 0
+    nbytes = (2 * q + new + 4 * batch + (batch * cache_len if slot_mask
+                                         else 0)
+              + 2 * valid * kv_heads * head_dim * it)
+    flops = 4 * heads * head_dim * (valid + (batch if fold else 0))
+    return flops, nbytes, dtype
+
+
 def decode_splits(B: int, Hkv: int, C: int, d: int) -> int:
     """The number of cache splits the kernel runs for a (B, Hkv, C, d)
     cache: enough CTAs (splits x Hkv x B) to cover the SMs about twice, no

@@ -52,6 +52,44 @@ HEAD_DIMS = (64, 80, 128, 256)  # the kernel's head dims (80 in 128 tiles)
 launches = 0          # kernel launches since the last reset
 
 
+def _itemsize(dtype: str) -> int:
+    return {"bfloat16": 2, "float16": 2, "float32": 4}[dtype]
+
+
+def visible_pairs(q_len: int, kv_len: int, *, causal: bool, window: int,
+                  q_offset: int) -> int:
+    """(query, key) pairs the mask lets through, per (row, head): query i
+    sits at position ``q_offset + i`` and sees keys ``[max(0, p - window
+    + 1), min(kv_len, p + 1))`` (the window and causality as the kernel
+    applies them)."""
+    total = 0
+    for i in range(q_len):
+        p = q_offset + i
+        lo = max(0, p - window + 1) if window > 0 else 0
+        hi = min(kv_len, p + 1) if causal else kv_len
+        total += max(0, hi - lo)
+    return total
+
+
+def cost(*, batch: int, q_len: int, kv_len: int, heads: int,
+         kv_heads: int, head_dim: int, causal: bool = True, window: int = 0,
+         q_offset: int = 0, dtype: str = "bfloat16", grad: bool = False):
+    """(operations, bytes, peak dtype) of one call: q, k and v read once
+    and the output written once; two products of ``head_dim`` per visible
+    (query, key) pair and head (``visible_pairs``: a causal mask halves
+    them, a window bounds them).  ``grad``: the backward, which reads q,
+    k, v and dO, writes dq, dk and dv, and runs five products per pair
+    (S and P again, dP, dQ, dK, dV)."""
+    it = _itemsize(dtype)
+    q = batch * q_len * heads * head_dim * it
+    kv = 2 * batch * kv_len * kv_heads * head_dim * it
+    pairs = visible_pairs(q_len, kv_len, causal=causal, window=window,
+                          q_offset=q_offset)
+    if grad:
+        return 10 * batch * heads * head_dim * pairs, 2 * q + 2 * kv, dtype
+    return 4 * batch * heads * head_dim * pairs, 2 * q + kv, dtype
+
+
 def visible_keys(Sk: int, q_lo: int, q_hi: int, *, causal: bool,
                  window: int) -> Tuple[int, int]:
     """[begin, end) of the keys that queries at positions q_lo..q_hi-1 can

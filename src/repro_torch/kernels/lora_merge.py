@@ -32,6 +32,18 @@ MAX_RANK = 32
 launches = 0          # kernel launches since the last reset
 
 
+def cost(*, layers: int, d_in: int, d_out: int, rank: int,
+         dtype: str = "bfloat16"):
+    """(operations, bytes, peak dtype) of one merge: W read and W'
+    written once in ``dtype``, the float32 factors A and B read once; per
+    element of W a rank-``rank`` dot product and the add.  The products
+    run in float32 on the CUDA cores, so the float32 peak applies."""
+    it = 2 if dtype in ("bfloat16", "float16") else 4
+    nbytes = (2 * layers * d_in * d_out * it
+              + 4 * layers * rank * (d_in + d_out))
+    return layers * d_in * d_out * (2 * rank + 1), nbytes, "float32"
+
+
 def lora_merge_plain(W, A, B, scale: float):
     """The plain version: the float32 product, added and cast back."""
     delta = torch.bmm(A.float(), B.float())

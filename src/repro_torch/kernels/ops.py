@@ -12,11 +12,17 @@ and the plain version for CPU tensors.
 any device — the way ``chip_smoke.py`` runs the same model on the card once
 through the kernels and once without them (the reference's
 ``decode_attn_impl`` switch plays the same role).
+
+``traced(tracer)`` hands every call to ``tracer(name, args, kwargs)``
+instead, in the model's layout, and returns what it returns: the dry run
+(``launch/dryrun.py``) charges each call by its kernel module's ``cost()``
+at the call's shard shapes and makes the output's shape without running
+the kernel or its plain version.  Nothing launches, so nothing is counted.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
@@ -25,6 +31,7 @@ from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import ssd_scan as _ssd
 
 _PLAIN = [False]
+_TRACER = [None]
 
 
 @contextlib.contextmanager
@@ -38,10 +45,25 @@ def plain_versions() -> Iterator[None]:
         _PLAIN[0] = prev
 
 
+@contextlib.contextmanager
+def traced(tracer: Callable) -> Iterator[None]:
+    """Within the block, every op is handed to ``tracer``."""
+    prev = _TRACER[0]
+    _TRACER[0] = tracer
+    try:
+        yield
+    finally:
+        _TRACER[0] = prev
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, scale: Optional[float] = None):
     """Model-layout flash attention: q (B,S,Hq,d), k/v (B,S,Hkv,d) ->
     (B,S,Hq,d)."""
+    if _TRACER[0] is not None:
+        return _TRACER[0]("flash_attention", (q, k, v),
+                          dict(causal=causal, window=window,
+                               q_offset=q_offset))
     fn = _fa.flash_attention_plain if _PLAIN[0] else _fa.flash_attention
     o = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
            causal=causal, window=window, q_offset=q_offset, scale=scale)
@@ -54,6 +76,10 @@ def decode_attention(q, k_cache, v_cache, lens, *, k_new=None, v_new=None,
     lens (B,) int32 -> (B,1,Hq,d).  Optional k/v_new (B,1,Hkv,d): the
     current token, folded in after the cache (zero-copy decode).  Optional
     slot_mask (B,C) bool: per-slot validity of a ring-buffered cache."""
+    if _TRACER[0] is not None:
+        return _TRACER[0]("decode_attention", (q, k_cache, v_cache, lens),
+                          dict(k_new=k_new, v_new=v_new,
+                               slot_mask=slot_mask))
     fn = _dec.decode_attention_plain if _PLAIN[0] else _dec.decode_attention
     kn = None if k_new is None else k_new.transpose(1, 2)
     vn = None if v_new is None else v_new.transpose(1, 2)
@@ -64,6 +90,8 @@ def decode_attention(q, k_cache, v_cache, lens, *, k_new=None, v_new=None,
 
 def lora_merge(W, A, B, scale: float):
     """Fused W + scale*(A@B) over stacked layers: W (L,Din,Dout)."""
+    if _TRACER[0] is not None:
+        return _TRACER[0]("lora_merge", (W, A, B), {})
     fn = _lm.lora_merge_plain if _PLAIN[0] else _lm.lora_merge
     return fn(W, A, B, scale)
 
@@ -72,6 +100,9 @@ def ssd_scan(x, dt, A, Bm, Cm, initial_state=None):
     """Mamba-2 SSD: x (B,S,H,P), dt (B,S,H) f32, A (H,) f32, Bm/Cm
     (B,S,N), initial_state (B,H,P,N) f32 or None (zeros) -> (y (B,S,H,P),
     final state (B,H,P,N) f32)."""
+    if _TRACER[0] is not None:
+        return _TRACER[0]("ssd_scan", (x, dt, A, Bm, Cm),
+                          dict(initial_state=initial_state))
     fn = _ssd.ssd_scan_plain if _PLAIN[0] else _ssd.ssd_scan
     return fn(x, dt, A, Bm, Cm, initial_state)
 
@@ -80,6 +111,8 @@ def rglru_scan(log_a, bx, h0=None):
     """RG-LRU recurrence h_t = exp(log_a_t) h_{t-1} + bx_t: log_a/bx
     (B,S,W) f32, h0 (B,W) f32 or None (zeros) -> (y (B,S,W) f32, h_T
     (B,W) f32)."""
+    if _TRACER[0] is not None:
+        return _TRACER[0]("rglru_scan", (log_a, bx), dict(h0=h0))
     fn = _rg.rglru_scan_plain if _PLAIN[0] else _rg.rglru_scan
     return fn(log_a, bx, h0)
 

@@ -53,6 +53,21 @@ STEPS = 16            # most steps of a segment
 launches = 0          # kernel launches since the last reset
 
 
+def cost(*, batch: int, seq: int, width: int, initial_state: bool = False,
+         grad: bool = False):
+    """(operations, bytes, peak dtype) of one scan, all float32: log_a and
+    bx read once, y and h_T written once (h0 read once when given); one
+    exp and one multiply-add per element.  ``grad``: the reversed scan,
+    which reads log_a, y, dy and dh_T and writes d log_a and d bx (and
+    dh0), with a multiply more per element."""
+    n = batch * seq * width * 4
+    h = batch * width * 4
+    h0 = h if initial_state else 0
+    if grad:
+        return 5 * batch * seq * width, 5 * n + h + 2 * h0, "float32"
+    return 3 * batch * seq * width, 3 * n + h + h0, "float32"
+
+
 def rglru_scan_plain(log_a, bx, h0=None):
     """The plain version: the oracle's loop over time in float32,
     h = exp(log_a_t) * h + bx_t, all channels at once."""

@@ -55,6 +55,37 @@ MAX_STATE = 128       # largest N the kernel's shared memory holds
 launches = 0          # kernel launches since the last reset
 
 
+def cost(*, batch: int, seq: int, heads: int, head_dim: int, state: int,
+         dtype: str = "bfloat16", initial_state: bool = False,
+         grad: bool = False):
+    """(operations, bytes, peak dtype) of one scan: x, dt, A, B and C read
+    once (x, B, C in ``dtype``, dt and A float32), y written once in
+    ``dtype`` and the float32 final state once (the initial state read
+    once when given).  Operations, per chunk of ``CHUNK`` rows: the
+    causal pairs of C Bᵀ once, and per head G x over the pairs, the
+    state's read C h and its update xᵀ B.  The products run on the
+    tensor cores in bf16 (float32 operands split in two bf16 parts, whose
+    extra products the inputs do not need), so the bf16 peak applies.
+    ``grad``: the backward, which reads the inputs and dy and writes their
+    gradients, at twice the forward's products."""
+    it = 2 if dtype in ("bfloat16", "float16") else 4
+    x = batch * seq * heads * head_dim * it
+    inputs = (x + batch * seq * heads * 4 + heads * 4
+              + 2 * batch * seq * state * it)
+    st = batch * heads * head_dim * state * 4
+    flops = 0
+    for t0 in range(0, seq, CHUNK):
+        q = min(CHUNK, seq - t0)
+        pairs = q * (q + 1) // 2
+        flops += batch * (2 * state * pairs
+                          + heads * (2 * head_dim * pairs
+                                     + 4 * q * head_dim * state))
+    h0 = st if initial_state else 0
+    if grad:
+        return 2 * flops, 2 * inputs + x + st + 2 * h0, "bfloat16"
+    return flops, inputs + x + st + h0, "bfloat16"
+
+
 def ssd_scan_plain(x, dt, A, Bm, Cm, initial_state=None, *,
                    chunk: int = CHUNK, phases: bool = False):
     """The plain version: ``_ssd_kernel``'s chunk loop in float32, over

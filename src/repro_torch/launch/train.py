@@ -35,7 +35,7 @@ from repro_torch.distributed.context import ShardingPolicy, use_policy
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.training.checkpoint import Checkpointer
 from repro_torch.training.data import SyntheticLM
-from repro_torch.training.optimizer import AdamWConfig
+from repro_torch.training.optimizer import AdamWConfig, tree_leaves
 from repro_torch.training.train import init_train_state, make_train_step
 
 
@@ -50,6 +50,8 @@ class TrainResult:
     peak_memory_bytes: Optional[int] = None              # card only
     ckpt_save_s: Optional[float] = None                  # the final save
     ckpt_restore_s: Optional[float] = None               # --resume
+    state_bytes: int = 0          # the train state's tensors (a step's
+                                  # donated input, as the dry run counts)
 
 
 def parse_args(argv=None):
@@ -146,6 +148,8 @@ def run(args) -> TrainResult:
                         async_=True)
     if device.type == "cuda":
         res.peak_memory_bytes = torch.cuda.max_memory_allocated(device)
+    res.state_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(state))
     if ck:
         t0 = time.perf_counter()
         ck.save(args.steps, state,

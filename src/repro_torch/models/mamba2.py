@@ -18,6 +18,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.context import constrain
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_step,
                                        dense_init, rms_norm)
@@ -66,12 +67,12 @@ def ssm_block_fwd(cfg, p, x, *, conv_state=None, ssm_state=None):
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     Bsz, S = x.shape[:2]
     h = rms_norm(p["norm"], x, cfg.norm_eps)
-    zxbcdt = h @ p["in_proj"]
+    zxbcdt = constrain(h @ p["in_proj"], "ffh")
     z, _, _, _, dt = _split_in_proj(cfg, zxbcdt)
     conv_out, new_conv_state = causal_conv1d(p["conv_w"],
                                              _conv_in(cfg, zxbcdt),
                                              conv_state)
-    conv_out = F.silu(conv_out)
+    conv_out = constrain(F.silu(conv_out), "ffh")
     # views of conv_out: the kernel reads them through their strides
     xs = conv_out[..., :di].reshape(Bsz, S, H, P)
     B = conv_out[..., di:di + N]
@@ -82,7 +83,8 @@ def ssm_block_fwd(cfg, p, x, *, conv_state=None, ssm_state=None):
     y = y + p["D_skip"].to(y.dtype)[:, None] * xs
     y = y.reshape(Bsz, S, di)
     y = rms_norm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)
-    return x + y @ p["out_proj"], (new_conv_state, new_ssm_state)
+    return (constrain(x + y @ p["out_proj"], "act"),
+            (new_conv_state, new_ssm_state))
 
 
 def ssm_block_step(cfg, p, x_t, conv_state, ssm_state):

@@ -31,7 +31,7 @@ from typing import Iterator, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.context import get_policy
+from repro_torch.distributed.context import constrain, get_policy
 from repro_torch.models.layers import dense_init
 
 # the routing decisions of every MoE call while ``record_routing`` is on
@@ -159,17 +159,42 @@ def moe_mlp(cfg, p, x, act, *, dropless: bool = False,
     B, S, D = x.shape
     T = B * S
     G = _token_groups(T)
-    xt = x.reshape(T, D)
-    parts = [_capacity_group(cfg, p, xg, act, capacity_factor)
-             for xg in xt.chunk(G, dim=0)]
-    y = parts[0][0] if G == 1 else torch.cat([q[0] for q in parts])
-    if _RECORD[0] is not None:
-        _RECORD[0].append(tuple(torch.cat([q[2][i] for q in parts])
-                                for i in range(2)))
-    probs = torch.cat([q[1][0] for q in parts])
-    onehot = torch.cat([q[1][1] for q in parts])
-    y = _shared(p, xt, act, y)
+    xt = constrain(x.reshape(T, D), "tok")
+    if G > 1 and getattr(xt, "_local_tensor", xt).shape[0] * G == T:
+        y, probs, onehot = _device_groups(cfg, p, xt, act, capacity_factor)
+    else:
+        parts = [_capacity_group(cfg, p, xg, act, capacity_factor)
+                 for xg in xt.chunk(G, dim=0)]
+        y = parts[0][0] if G == 1 else torch.cat([q[0] for q in parts])
+        if _RECORD[0] is not None:
+            _RECORD[0].append(tuple(torch.cat([q[2][i] for q in parts])
+                                    for i in range(2)))
+        probs = torch.cat([q[1][0] for q in parts])
+        onehot = torch.cat([q[1][1] for q in parts])
+    y = _shared(p, xt, act, constrain(y, "tok"))
     return y.reshape(B, S, D), _aux(cfg, probs, onehot)
+
+
+def _device_groups(cfg, p, xt, act, capacity_factor):
+    """The capacity path of a DTensor ``xt`` whose tokens are split into
+    exactly the policy's groups (the dry run's, ``launch/dryrun.py``):
+    each device routes its own group, the expert weights whole on it, as
+    the reference's per-group routing runs under its sharding.  Returns
+    (y, probs, onehot), split over the devices as ``xt``."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    names = ("router", "w_gate", "w_up", "w_down")
+    tok = tuple(xt.placements)
+    full = (Replicate(),) * xt.device_mesh.ndim
+
+    def group(xl, *weights):
+        y, (probs, onehot), _ = _capacity_group(
+            cfg, dict(zip(names, weights)), xl, act, capacity_factor)
+        return y, probs, onehot
+    run = local_map(group, out_placements=(tok, tok, tok),
+                    in_placements=(tok,) + (full,) * len(names),
+                    redistribute_inputs=True)
+    return run(xt, *(p[k] for k in names))
 
 
 def _capacity_group(cfg, p, xt, act, capacity_factor):

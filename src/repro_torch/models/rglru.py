@@ -21,6 +21,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.context import constrain
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (_ACTS, causal_conv1d,
                                        causal_conv1d_step, dense_init)
@@ -66,11 +67,12 @@ def rec_block_fwd(cfg, p, x, *, conv_state=None, h0=None):
     x: (B, S, D) (already normed by the caller).  The scan continues from
     ``h0`` (B, W) float32 when given.  Returns (y (B, S, D), (conv_state,
     h_last (B, W) float32))."""
-    gate = _ACTS["gelu"](x @ p["w_gate_branch"])
-    u = x @ p["w_x_branch"]
+    gate = constrain(_ACTS["gelu"](x @ p["w_gate_branch"]), "ffh")
+    u = constrain(x @ p["w_x_branch"], "ffh")
     u, new_conv_state = causal_conv1d(p["conv_w"], u, conv_state)
     log_a, bx = _gates(p, u.float())
     h, h_last = ops.rglru_scan(log_a, bx, h0)
+    h = constrain(h, "ffh")
     y = (h.to(x.dtype) * gate) @ p["w_out"]
     return y, (new_conv_state, h_last)
 

@@ -44,6 +44,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.context import constrain
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2, moe, rglru
 from repro_torch.models.layers import (_ACTS, apply_mrope, apply_rope,
@@ -217,9 +218,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
 def _apply_mlp(cfg, p, x):
     act = _ACTS[cfg.act]
     if cfg.gated_mlp:
-        h = act(x @ p["w_gate"]) * (x @ p["w_up"])
+        h = constrain(act(x @ p["w_gate"]) * (x @ p["w_up"]), "ffh")
     else:
-        h = act(x @ p["w_up"])
+        h = constrain(act(x @ p["w_up"]), "ffh")
     return h @ p["w_down"]
 
 
@@ -236,10 +237,10 @@ def attn_out_ffn(cfg, p, x, o, *, dropless: bool = False):
     """The rest of an attention layer after its attention output o (B, S,
     Hq, hd): the output projection into the residual, the second norm and
     the FFN.  Returns (x, aux)."""
-    x = x + o.reshape(*x.shape[:2], -1) @ p["wo"]
+    x = constrain(x + o.reshape(*x.shape[:2], -1) @ p["wo"], "act")
     y, aux = _ffn(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x),
                   dropless=dropless)
-    return x + y, aux
+    return constrain(x + y, "act"), aux
 
 
 def project_q(cfg, p, h):
@@ -292,8 +293,9 @@ def attn_layer_fwd(cfg, p, x, positions, *, kv_write=None):
     recompute of ``core.kv_reconstruct`` uses."""
     h = _apply_norm(cfg, p["ln1"], x)
     q, k, v = _project_qkv(cfg, p, h)
-    q = rope(cfg, q, positions)
-    k = rope(cfg, k, positions)
+    q = constrain(rope(cfg, q, positions), "heads")
+    k = constrain(rope(cfg, k, positions), "heads")
+    v = constrain(v, "heads")
     o = attn_lib.attention(q, k, v, causal=cfg.causal,
                            window=cfg.attn_window)
     if kv_write is not None:
@@ -350,9 +352,9 @@ def rec_layer_fwd(cfg, p, x, *, conv_state=None, h0=None):
     h = _apply_norm(cfg, p["ln1"], x)
     y, state = rglru.rec_block_fwd(cfg, p["rec"], h, conv_state=conv_state,
                                    h0=h0)
-    x = x + y
+    x = constrain(x + y, "act")
     h2 = _apply_norm(cfg, p["ln2"], x)
-    return x + _apply_mlp(cfg, p["mlp"], h2), state
+    return constrain(x + _apply_mlp(cfg, p["mlp"], h2), "act"), state
 
 
 def rec_layer_step(cfg, p, x, conv_state, h):
@@ -379,9 +381,10 @@ def embed_tokens(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     else:
         x = params["embed"][batch["tokens"]]
     if "positions" in batch:
-        return x, batch["positions"]
+        return constrain(x, "act"), batch["positions"]
     B, S = x.shape[:2]
-    return x, torch.arange(S, device=x.device)[None, :].expand(B, S)
+    return constrain(x, "act"), torch.arange(S, device=x.device)[
+        None, :].expand(B, S)
 
 
 class _Float32Product(torch.autograd.Function):
@@ -407,12 +410,12 @@ def unembed(cfg, params, x) -> torch.Tensor:
     ``preferred_element_type`` gives them.  On the card a bf16 product
     writes float32 directly (float32 accumulation, no float32 copy of the
     (V, D) embedding); on the CPU, which has no such product, the operands
-    are upcast."""
+    are upcast.  A meta tensor (the dry run's) stands for the card."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    if x.is_cuda and x.dtype != torch.float32:
+    if x.device.type != "cpu" and x.dtype != torch.float32:
         y = _Float32Product.apply(x.reshape(-1, x.shape[-1]), head)
-        return y.reshape(*x.shape[:-1], y.shape[-1])
-    return x.float() @ head.float()
+        return constrain(y.reshape(*x.shape[:-1], y.shape[-1]), "logits")
+    return constrain(x.float() @ head.float(), "logits")
 
 
 def _kind_runs(kinds: List[str]) -> List[Tuple[str, int]]:

@@ -507,7 +507,8 @@ class ContinuousBatcher:
             self._dev_active.copy_(dev_act[i])
             self._decode()
             walked[i].copy_(self._dev_tokens)
-        walked_host = walked.cpu().numpy()   # ONE host read for the walk
+        # pbcheck: disable=R2 (designed sync: ONE host read for the whole suffix walk; admission needs the hits' first tokens)
+        walked_host = walked.cpu().numpy()
         for slot, req, k, sfx in walks:
             self.prefix_hits += 1
             self.prefix_hit_tokens += k
@@ -551,7 +552,8 @@ class ContinuousBatcher:
                                     torch.from_numpy(slots).to(dev), backend)
         if backend == "pipeline":
             self.n_prefill_pipeline += len(reqs)
-        first_host = first.cpu().numpy()   # admission reads first tokens
+        # pbcheck: disable=R2 (designed sync: admission reads first tokens to catch immediate EOS before slot commit)
+        first_host = first.cpu().numpy()
         self.n_prefill_calls += 1
         self.n_prefill_reqs += len(reqs)
         for i, slot, req in assigned:
@@ -588,7 +590,8 @@ class ContinuousBatcher:
         if self._io_dirty:
             self._load_io()
         self._decode()
-        nxt_host = self._dev_tokens.cpu().numpy()  # THE one host read a step
+        # pbcheck: disable=R2 (designed sync: THE one host transfer per decode step; EOS checks need the token ids)
+        nxt_host = self._dev_tokens.cpu().numpy()
         self.n_decode_steps += 1
         finished = []
         done_slots: List[Tuple[int, ServeRequest]] = []

@@ -1,6 +1,7 @@
 """The port stands alone: importing ``repro_torch`` and every submodule
 loads neither JAX nor anything of the JAX package ``repro``, and no source
-of the port (nor ``chip_smoke.py``) names them in an import."""
+of the port (nor ``chip_smoke.py``, ``tools/pbcheck_torch.py`` or an
+``examples/torch_*.py``) names them in an import."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tools" / "pbcheck_torch.py"]
+           + sorted((ROOT / "examples").glob("torch_*.py")))
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -39,7 +42,11 @@ def test_import_loads_no_jax_and_no_reference():
     for name in ("distributed.pipeline", "distributed.context",
                  "distributed.shardings", "launch.mesh", "launch.train",
                  "training.optimizer", "training.train", "training.data",
-                 "training.checkpoint"):
+                 "training.checkpoint", "launch.dryrun", "launch.rooflines",
+                 "analysis", "analysis.cli", "analysis.context",
+                 "analysis.rules.replay", "analysis.rules.hostsync",
+                 "analysis.rules.capture", "analysis.rules.locks",
+                 "analysis.rules.chaos", "analysis.rules.docstrings"):
         assert "repro_torch." + name in walked, name
 
 
