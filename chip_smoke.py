@@ -270,6 +270,29 @@ Phases (any failure exits non-zero and prints no result line):
    The kernels line gains ``phase11_launches`` and
    ``phase11_launches_by_part`` (11c, 11d); a ``{"dryrun": ...}`` line
    before it holds phase 11's numbers.
+12. Training across cards: ``launch.train`` under ``torchrun``, one
+   process a card, each rank run through this script's
+   ``--train-worker`` entry (which sets the launch counts to 0, calls
+   ``launch.train.main`` and has rank 0 write its result and counts):
+   - 12a: phase 10b's run with ``--distributed-init`` on one NCCL rank:
+     the train state as DTensors on the host mesh (1, 1), flash through
+     the DTensor route (``local_map``); step 1's loss within 1e-3
+     relative of 10b's, every loss finite, the last below the first, 48
+     flash launches a step; its step time, tokens/s and peak memory
+     printed beside 10b's;
+   - 12b: the reduced opt-1.3b on the card host's CPU, 3 steps on 2
+     ``gloo`` ranks against one process: losses within 1e-5 relative,
+     AdamW's step, m and v within 1e-4 of each leaf's max |x|, the
+     parameters within 5% of lr x steps (AdamW's gain of lr / eps on
+     gradients near eps turns sum-order noise into parameter moves far
+     above 1e-4 of max |p|); the 2-rank checkpoint restored in one
+     process, every leaf equal; resumed to step 4 on one rank and in one
+     process, held the same way;
+   - 12c: 12a on min(count, 4) cards when the machine has two or more,
+     else ``"cross_card": "not run: 1 card"``.
+   The kernels line gains ``train_launches_by_part["12a"]`` (and 12c's);
+   a ``{"train_distributed": ...}`` line before it holds phase 12's
+   numbers.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -3005,6 +3028,254 @@ def examples_on_card(torch, ops):
     return counts, times
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training across cards (a process group, the state as DTensors)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--steps", "10", "--batch", "8",
+              "--seq", "512"]            # phase 10b's run
+SHARDED_LOSS_REL = 1e-3     # 12a step-1 loss against 10b's (bf16)
+CPU_LOSS_REL = 1e-5         # 12b losses against the one-process run's
+CPU_STATE_TOL = 1e-4        # 12b m and v: share of each leaf's max |x|
+# 12b parameters: share of lr x steps, the most AdamW moves an element.
+# An element whose gradient is near eps (1e-8) moves by lr g / (|g| +
+# eps): float32 sum-order noise in g, ~1e-7 of max |g|, then shows at a
+# gain of lr / eps, far above 1e-4 of max |p| (padded vocab rows of the
+# tied embedding: 0.6% of lr x steps at 2.2e-4 of max |p| on a CPU).
+CPU_PARAM_LR_SHARE = 0.05
+LAUNCH_LR = 1e-3            # launch/train.py's AdamW peak learning rate
+TORCHRUN_TIMEOUT = 600
+
+
+def train_worker(out: str, argv) -> int:
+    """One rank of a phase-12 run, under torchrun (``chip_smoke.py
+    --train-worker OUT -- ARGS``): ``launch.train.main(ARGS)`` with every
+    launch count set to 0 just before it; rank 0 writes the run's
+    ``TrainResult`` and this process's launch counts to OUT as JSON."""
+    import os
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    ops.reset_launch_counts()
+    res = train.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    if int(os.environ["RANK"]) == 0:
+        Path(out).write_text(json.dumps(dict(dataclasses.asdict(res),
+                                             launches=ops.launch_counts())))
+    return 0
+
+
+def torchrun(nproc: int, argv, tag: str) -> dict:
+    """``torchrun --standalone --nproc-per-node nproc`` of ``launch.train``
+    with ``argv`` (through ``train_worker``): rank 0's result.  Fails
+    unless every rank exits 0; on a timeout the whole process group is
+    killed."""
+    import os
+    import signal
+    out = ROOT / "build" / f"chip_smoke_{tag}.json"
+    out.parent.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), str(ROOT / "chip_smoke.py"),
+           "--train-worker", str(out), "--", *argv]
+    print(f"  torchrun --standalone --nproc-per-node {nproc} -m "
+          f"repro_torch.launch.train {' '.join(argv)}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=TORCHRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        log, _ = proc.communicate()
+        raise SmokeError(f"{tag}: torchrun did not end in "
+                         f"{TORCHRUN_TIMEOUT} s: {log[-3000:]}")
+    for line in log.splitlines():
+        if line.startswith(("mesh:", "step ", "resumed")):
+            print("    " + line)
+    require(proc.returncode == 0 and out.exists(),
+            f"{tag}: torchrun exited {proc.returncode}: {log[-6000:]}")
+    return json.loads(out.read_text())
+
+
+def _step_summary(res, B, S):
+    later = sorted(res["step_s"][2:])
+    step_s = later[len(later) // 2]
+    return dict(step_ms_median=step_s * 1e3,
+                step_ms_all=[x * 1e3 for x in res["step_s"]],
+                tokens_per_s=B * S / step_s,
+                peak_memory_gib=res["peak_memory_bytes"] / 2 ** 30)
+
+
+def sharded_train(torch, ops, train_step, nproc: int, tag: str):
+    """12a (one rank) and 12c (one rank a card): phase 10b's run under
+    torchrun with ``--distributed-init``: an NCCL group, the train state
+    as DTensors laid out FSDP on the host mesh (nproc, 1), flash reached
+    through the DTensor route.  Step 1's loss within 1e-3 relative of
+    10b's (same seed, same batch), every loss finite, the last below the
+    first, 48 flash launches a step on rank 0 and nothing else."""
+    from repro_torch.configs.base import get_arch
+    torch.cuda.empty_cache()
+    res = torchrun(nproc, TRAIN_ARGV + ["--distributed-init"], tag)
+    cfg, steps, B, S = get_arch(TRAIN_ARCH), 10, 8, 512
+    losses, counts = res["losses"], res["launches"]
+    ref = train_step["losses"]
+    rel = abs(losses[0] - ref[0]) / abs(ref[0])
+    want = 2 * cfg.n_layers * steps
+    out = dict(world=res["world"], mesh=res["mesh"], losses=losses,
+               step1_rel_to_10b=rel, **_step_summary(res, B, S),
+               state_bytes_rank0=res["state_bytes"],
+               flash_launches_per_step=counts["flash_attention"] // steps)
+    out["10b"] = {k: train_step[k] for k in ("step_ms_median",
+                                             "tokens_per_s",
+                                             "peak_memory_gib")}
+    print(f"  {tag} world {res['world']} mesh {res['mesh']}: losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}; step 1 {rel:.2e} "
+          f"relative to 10b's; step {out['step_ms_median']:.1f} ms "
+          f"(10b {train_step['step_ms_median']:.1f}), "
+          f"{out['tokens_per_s']:.0f} tokens/s (10b "
+          f"{train_step['tokens_per_s']:.0f}), peak "
+          f"{out['peak_memory_gib']:.2f} GiB (10b "
+          f"{train_step['peak_memory_gib']:.2f}); launches {counts}")
+    require(res["world"] == nproc and res["mesh"] == {"data": nproc,
+                                                      "model": 1},
+            f"{tag} world {res['world']} mesh {res['mesh']}")
+    require(rel <= SHARDED_LOSS_REL,
+            f"{tag} step-1 loss {losses[0]} against 10b's {ref[0]}")
+    require(len(losses) == steps and all(math.isfinite(x) for x in losses),
+            f"{tag} losses {losses}")
+    require(losses[-1] < losses[0], f"{tag} loss did not fall: {losses}")
+    require(counts["flash_attention"] == want
+            and sum(counts.values()) == want,
+            f"{tag} launches {counts}, expected {want} flash")
+    return counts, out
+
+
+def _npz_apart(a_dir: Path, b_dir: Path, step: int) -> dict:
+    """Two train-state checkpoints' arrays at ``step``, leaf by leaf:
+    {path: (max |a - b|, max |b|)}."""
+    import numpy as np
+    name = f"step_{step:09d}"
+    with np.load(a_dir / name / "arrays.npz") as a, \
+            np.load(b_dir / name / "arrays.npz") as b:
+        require(sorted(a.files) == sorted(b.files),
+                f"checkpoint leaves differ: {a.files} {b.files}")
+        return {k: (float(np.abs(a[k].astype(np.float64) - b[k]).max()),
+                    float(np.abs(b[k].astype(np.float64)).max()))
+                for k in b.files}
+
+
+def _hold_states(apart: dict, steps: int, what: str) -> dict:
+    """The parameters (leaves ``0/...``) within CPU_PARAM_LR_SHARE of lr
+    x steps; AdamW's step, m and v within CPU_STATE_TOL of each leaf's
+    max |x|.  Returns the worst of each."""
+    params = max(e for k, (e, _) in apart.items() if k.startswith("0/"))
+    rel = {k: 0.0 if e == 0 else e / s for k, (e, s) in apart.items()
+           if not k.startswith("0/")}
+    out = dict(params_max_abs=params,
+               params_share_of_lr_steps=params / (LAUNCH_LR * steps),
+               params_share_of_max_p=max(
+                   e / s for k, (e, s) in apart.items()
+                   if k.startswith("0/") and s > 0),
+               moments_max_rel=max(rel.values()))
+    require(out["params_share_of_lr_steps"] <= CPU_PARAM_LR_SHARE,
+            f"{what} parameters apart: {out}")
+    require(out["moments_max_rel"] <= CPU_STATE_TOL,
+            f"{what} step, m, v apart: "
+            f"{sorted(rel.items(), key=lambda kv: -kv[1])[:4]}")
+    return out
+
+
+def sharded_train_cpu(torch):
+    """12b: the multi-rank logic under the card's torch, on its host's
+    CPU: the reduced opt-1.3b for 3 steps on 2 ``gloo`` ranks against one
+    process (losses within 1e-5 relative, every leaf of the step-3
+    checkpoints within 1e-4 of its max |x|); the 2-rank checkpoint
+    restored in one process, every leaf equal to the saved array; then
+    resumed to step 4 on one rank (a DTensor state) and in one process
+    from copies of it: equal within the same bounds."""
+    import io
+    import shutil
+    import numpy as np
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import train
+    from repro_torch.training.checkpoint import (Checkpointer,
+                                                 _flatten_with_paths)
+    from repro_torch.training.train import init_train_state
+    base = ["--arch", TRAIN_ARCH, "--device", "cpu", "--batch", "8",
+            "--seq", "64"]
+    build = ROOT / "build"
+    one, two, r1, rp = (build / f"chip_smoke_12b_{n}"
+                        for n in ("one", "two", "resume_rank", "resume_one"))
+    for d in (one, two, r1, rp):
+        shutil.rmtree(d, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        sharded = torchrun(2, base + ["--steps", "3", "--ckpt-dir",
+                                      str(two)], "12b_two")
+        with contextlib.redirect_stdout(io.StringIO()):
+            alone = train.main(base + ["--steps", "3", "--ckpt-dir",
+                                       str(one)])
+        loss_rel = max(abs(x - y) / abs(y) for x, y in
+                       zip(sharded["losses"], alone.losses))
+        held = _hold_states(_npz_apart(two, one, 3), 3, "12b step 3")
+
+        # restore the 2-rank checkpoint in one process, value for value
+        cfg = get_arch(TRAIN_ARCH).reduced()
+        tmpl = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                torch.float32, torch.device("cpu"))
+        got, extra = Checkpointer(str(two)).restore(tmpl, step=3)
+        with np.load(two / "step_000000003" / "arrays.npz") as z:
+            flat = _flatten_with_paths(got)
+            unequal = [k for k in z.files
+                       if not np.array_equal(flat[k].numpy(), z[k])]
+            n_leaves = len(z.files)
+
+        # and resume from it: one rank under torchrun, one process alone
+        for d in (r1, rp):
+            shutil.copytree(two, d)
+        resumed = torchrun(1, base + ["--steps", "4", "--ckpt-dir", str(r1),
+                                      "--resume"], "12b_resume")
+        with contextlib.redirect_stdout(io.StringIO()):
+            plain = train.main(base + ["--steps", "4", "--ckpt-dir",
+                                       str(rp), "--resume"])
+        resume_rel = abs(resumed["losses"][0] - plain.losses[0]) / abs(
+            plain.losses[0])
+        resume_held = _hold_states(_npz_apart(r1, rp, 4), 4, "12b resume")
+    finally:
+        for d in (one, two, r1, rp):
+            shutil.rmtree(d, ignore_errors=True)
+    out = dict(losses_2_ranks=sharded["losses"],
+               losses_one_process=alone.losses, loss_max_rel=loss_rel,
+               state=held,
+               restored_leaves_equal=n_leaves - len(unequal),
+               restored_leaves=n_leaves, resumed_start=resumed["start_step"],
+               resumed_loss_1_rank=resumed["losses"],
+               resumed_loss_one_process=plain.losses,
+               resumed_loss_rel=resume_rel,
+               resumed_state=resume_held,
+               wall_s=time.perf_counter() - t0)
+    print(f"  12b gloo, 2 ranks against one process: losses "
+          f"{sharded['losses']} against {alone.losses} (max rel "
+          f"{loss_rel:.2e}), step-3 state {held}; restored in one "
+          f"process: {out['restored_leaves_equal']} of {n_leaves} leaves "
+          f"equal; resumed to step 4 on one rank {resumed['losses']} "
+          f"against one process {plain.losses} (rel {resume_rel:.2e}, "
+          f"state {resume_held}); {out['wall_s']:.1f} s")
+    require(sharded["world"] == 2 and sharded["mesh"] == {"data": 2,
+                                                          "model": 1},
+            f"12b world {sharded['world']} mesh {sharded['mesh']}")
+    require(loss_rel <= CPU_LOSS_REL, f"12b losses {out}")
+    require(not unequal and extra["step"] == 3,
+            f"12b restore: leaves {unequal[:8]} differ")
+    require(resumed["start_step"] == 3 and len(resumed["losses"]) == 1,
+            f"12b resume {resumed['start_step']} {resumed['losses']}")
+    require(resume_rel <= CPU_LOSS_REL, f"12b resume apart: {out}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3178,6 +3449,22 @@ def main() -> int:
     phase11_parts.update(ex_counts)
     dry["phase_11_s"] = time.perf_counter() - t11
     print(f"  phase 11 took {dry['phase_11_s']:.1f} s")
+    print("== phase 12: training across cards (process group, DTensors)")
+    t12 = time.perf_counter()
+    distributed = {}
+    train_parts["12a"], distributed["12a"] = sharded_train(
+        torch, ops, train_step, 1, "12a")
+    distributed["12b"] = sharded_train_cpu(torch)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        train_parts["12c"], distributed["cross_card"] = sharded_train(
+            torch, ops, train_step, min(n_cards, 4), "12c")
+    else:
+        distributed["cross_card"] = f"not run: {n_cards} card"
+        print(f"  12c cross_card: {distributed['cross_card']}")
+    distributed["nvidia_smi"] = smi
+    distributed["phase_12_s"] = time.perf_counter() - t12
+    print(f"  phase 12 took {distributed['phase_12_s']:.1f} s")
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     kernels = []
@@ -3219,8 +3506,9 @@ def main() -> int:
                       "at_hubert"):
             if extra in r:
                 entry[extra] = r[extra]
-        # launches of phase 10's train runs (10b the train step, 10c the
-        # families, 10d the checkpoint and resume); 10a's comparison
+        # launches of phase 10's and 12's train runs (10b the train step,
+        # 10c the families, 10d the checkpoint and resume, 12a the train
+        # step under torchrun on DTensors; rank 0's); 10a's comparison
         # launches are not counted
         entry["train_launches"] = sum(c[name] for c in train_parts.values())
         entry["train_launches_by_part"] = {
@@ -3242,6 +3530,7 @@ def main() -> int:
     print(json.dumps({"moe_decode_step": moe_step}))
     print(json.dumps({"train_step": train_step}))
     print(json.dumps({"dryrun": dry}))
+    print(json.dumps({"train_distributed": distributed}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -3250,6 +3539,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--train-worker"]:   # a rank of phase 12
+            sys.exit(train_worker(sys.argv[2], sys.argv[4:]))
         sys.exit(main())
     except Exception:                   # any failed phase: no result line
         traceback.print_exc()

@@ -3,9 +3,10 @@
 The model code calls ``constrain(x, role)`` at layer boundaries, where
 the reference does, which pins an activation to the installed policy's
 sharding, and its MoE routes tokens per device-local group, the number of
-groups coming from that policy.  The port runs on one card: ``constrain``
-returns a plain tensor as it is, and redistributes only a DTensor (the dry
-run's, ``launch/dryrun.py``) to the policy's spec for its role.
+groups coming from that policy.  ``constrain`` returns a plain tensor (a
+one-device run's) as it is, and redistributes a DTensor (a train step
+sharded over a process group, ``launch/train.py``, or the dry run's meta
+tensors, ``launch/dryrun.py``) to the policy's spec for its role.
 
 Roles:
   act    (B, S, D)   — residual stream:      (dp, seq, None)
@@ -19,7 +20,7 @@ from __future__ import annotations
 import threading
 from typing import Optional, Tuple
 
-from repro_torch.distributed.shardings import P
+from repro_torch.distributed.shardings import P, placements
 from repro_torch.launch.mesh import Mesh
 
 _STATE = threading.local()
@@ -45,7 +46,9 @@ class ShardingPolicy:
     @property
     def token_groups(self) -> int:
         """Number of token shards (dp x seq): MoE routes per group, so
-        capacity and dispatch stay local (GShard per-group semantics)."""
+        capacity and dispatch stay local (GShard per-group semantics).
+        Over a process group these are the ranks that hold distinct
+        tokens, each routing its own group (``moe._device_groups``)."""
         n = 1
         for a in self._dp_list():
             n *= self.mesh.shape[a]
@@ -77,17 +80,29 @@ def get_policy() -> Optional[ShardingPolicy]:
 
 class use_policy:
     """Install ``policy`` for the block (per thread), then restore the
-    previous one."""
+    previous one.  The block also takes every plain tensor the model
+    makes (positions, masks, constants) as replicated on the mesh where it
+    meets a DTensor (DTensor's ``implicit_replication``), as the
+    reference's jitted program replicates its constants."""
 
     def __init__(self, policy: Optional[ShardingPolicy]):
         self.policy = policy
+        self._implicit = None
 
     def __enter__(self):
         self.prev = get_policy()
         set_policy(self.policy)
+        if self.policy is not None:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            self._implicit = implicit_replication()
+            self._implicit.__enter__()
         return self.policy
 
     def __exit__(self, *exc):
+        if self._implicit is not None:
+            self._implicit.__exit__(None, None, None)
+            self._implicit = None
         set_policy(self.prev)
 
 
@@ -98,15 +113,10 @@ def constrain(x, role: str = "act"):
     pol = get_policy()
     if pol is None:
         return x
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    names = pol.mesh.axis_names
-    pl = [Replicate()] * len(names)
-    for d, entry in enumerate(pol.spec(role, x.ndim)):
-        for a in (entry if isinstance(entry, tuple) else
-                  (() if entry is None else (entry,))):
-            pl[names.index(a)] = Shard(d)
+    pl = placements(pol.spec(role, x.ndim), pol.mesh)
     if list(pl) == list(x.placements):
         return x
     return x.redistribute(x.device_mesh, pl)

@@ -15,10 +15,15 @@ A spec is a ``P``: one entry per tensor dimension, each None (replicated),
 an axis name or a tuple of axis names, as ``jax.sharding.PartitionSpec``
 writes it.  Trees of specs mirror the trees they describe (nested dicts,
 lists and tuples; a leaf is anything with a ``shape``), so the port's
-params, caches and batches get the reference's specs leaf by leaf.  The
-port runs on one card, so nothing here moves data across devices:
-``named`` places every leaf on the mesh's one device and refuses a mesh
-that would need another.
+params, caches and batches get the reference's specs leaf by leaf.
+
+A spec becomes DTensor placements on a ``DeviceMesh`` of the mesh's names
+(``placements``): one entry a mesh dim, ``Shard(d)`` where the spec puts
+that axis on tensor dim d, ``Replicate()`` elsewhere.  ``named`` gives
+every leaf's placements (or, on a one-device mesh, its device), as the
+reference's ``named`` gives its ``NamedSharding``s, and ``distribute``
+turns whole tensors into DTensors laid out by the specs, one rank a
+device.
 """
 from __future__ import annotations
 
@@ -212,12 +217,115 @@ def opt_specs(param_spec_tree) -> Any:
     return param_spec_tree
 
 
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry (None, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def placements(spec, mesh: Mesh) -> Tuple:
+    """The DTensor placements of ``spec`` on a ``DeviceMesh`` of
+    ``mesh``'s names: ``Shard(d)`` on each mesh dim the spec puts on
+    tensor dim d, ``Replicate()`` on the others.  Where a tuple entry puts
+    several axes on one dim, the first axis splits it first (the
+    reference's row-major order of a multi-axis entry).  A mesh dim of
+    size 1 is ``Replicate()`` whatever the spec: its one shard is the
+    whole dim, and DTensor's view rules refuse some reshapes of a dim
+    "split" over it (torch 2.11 flattening (B, S) split over (1, 1))."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate()] * len(mesh.axis_names)
+    for d, entry in enumerate(tuple(spec)):
+        for a in spec_axes(entry):
+            if mesh.shape[a] > 1:
+                pl[mesh.axis_names.index(a)] = Shard(d)
+    return tuple(pl)
+
+
+def row_placements(placements):
+    """(rows, whole, summed) for a call on each rank's batch rows of a
+    DTensor laid out by ``placements``: the rows kept split over the mesh
+    dims that split dim 0 (``Shard(0)``), every other mesh dim replicated;
+    every mesh dim replicated (an input each rank takes whole); and the
+    gradient of such a whole input, a partial sum over the dims that split
+    the rows (each rank's rows give their share) and replicated on the
+    others."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    def split(p):
+        return isinstance(p, Shard) and p.dim == 0
+    rows = tuple(p if split(p) else Replicate() for p in placements)
+    whole = (Replicate(),) * len(rows)
+    summed = tuple(Partial() if split(p) else Replicate()
+                   for p in placements)
+    return rows, whole, summed
+
+
 def named(mesh: Mesh, spec_tree) -> Any:
-    """The device of every spec's leaf.  One card holds the whole tree:
-    a mesh of more than one device, or one that names no device, would
-    need the specs applied across cards, and is refused."""
-    if mesh.size != 1 or not mesh.devices:
-        raise ValueError(f"mesh {mesh.shape} would need {mesh.size} "
-                         f"devices; the port places on one")
-    dev = mesh.devices[0]
-    return _map_with_path(lambda _p, s: dev, spec_tree)
+    """Where every spec's leaf goes: on a one-device mesh, that device;
+    on a mesh of more devices, the leaf's DTensor placements
+    (``placements``).  A mesh that names no device (a description, such
+    as the production mesh on fewer cards) is refused."""
+    if not mesh.devices:
+        raise ValueError(f"mesh {mesh.shape} names no devices: it "
+                         f"describes {mesh.size} devices, it places none")
+    if mesh.size == 1:
+        dev = mesh.devices[0]
+        return _map_with_path(lambda _p, s: dev, spec_tree)
+    return _map_with_path(lambda _p, s: placements(s, mesh), spec_tree)
+
+
+def distribute(tree, specs, mesh: Mesh) -> Any:
+    """Every whole tensor of ``tree`` as a DTensor on
+    ``mesh.device_mesh()`` laid out by its spec in ``specs``: each rank
+    keeps its own copy of its own shard, with no communication, and
+    shares no memory with ``tree``.  So every rank must hold the same
+    whole tensors: the weights are drawn on every rank from the same
+    explicit generator seed, and every rank of a node reads the node's
+    batch."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    device_mesh = mesh.device_mesh()
+
+    def place(path, spec):
+        t = _get(tree, path)
+        pl = placements(spec, mesh)
+        d = distribute_tensor(t, device_mesh, pl, src_data_rank=None)
+        local = d.to_local()
+        if local.untyped_storage().data_ptr() == \
+                t.untyped_storage().data_ptr():
+            # a replicated leaf is the tensor itself, a shard a view of it:
+            # an in-place update would write through, a view keep it alive
+            d = DTensor.from_local(local.clone(), device_mesh, pl,
+                                   run_check=False, shape=d.shape,
+                                   stride=d.stride())
+        return d
+    return _map_with_path(place, specs)
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+_REGISTERED = [False]
+
+
+def register_strategies() -> None:
+    """Sharding strategies DTensor lacks for ops of the step, registered
+    once a process: ``mm`` with an ``out_dtype`` (the unembedding's bf16
+    product into float32 logits, ``transformer._Float32Product``) shards
+    by rows or by columns, never whole or partial on a device (DTensor's
+    choice does not weigh the output: whole or partial (T, V) float32
+    logits would be tens of GB a device)."""
+    if _REGISTERED[0]:
+        return
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.mm.dtype)
+    def _mm_dtype(x, y, out_dtype):
+        return [([Shard(0)], [Shard(0), Replicate(), None]),
+                ([Shard(1)], [Replicate(), Shard(1), None])]
+    _REGISTERED[0] = True

@@ -18,6 +18,16 @@ instead, in the model's layout, and returns what it returns: the dry run
 (``launch/dryrun.py``) charges each call by its kernel module's ``cost()``
 at the call's shard shapes and makes the output's shape without running
 the kernel or its plain version.  Nothing launches, so nothing is counted.
+
+DTensors (a train step sharded over a process group, ``launch/train.py``)
+take one route, ``_on_rows``: ``local_map`` over the same call, with
+each input's batch rows kept split over the mesh dims that split them
+and every other dim made whole on each rank (a sequence split over
+'model' is all-gathered, under autograd).  Each rank then runs the kernel
+(or, for CPU tensors, its plain version) on its own rows with the whole
+sequence, which is the reference's semantics, and the outputs come back
+in the input's own placements.  ``decode_attention`` and ``lora_merge``
+serve only and refuse a DTensor.
 """
 from __future__ import annotations
 
@@ -56,6 +66,40 @@ def traced(tracer: Callable) -> Iterator[None]:
         _TRACER[0] = prev
 
 
+def _any_dtensor(*ts) -> bool:
+    return any(type(t).__name__ == "DTensor" for t in ts)
+
+
+def _refuse_dtensors(name: str, *ts) -> None:
+    if _any_dtensor(*ts):
+        raise TypeError(f"{name} serves one device and takes no DTensor; "
+                        f"call it on each rank's local tensors")
+
+
+def _on_rows(fn, args, batched, given_back):
+    """``fn(*args)`` on each rank's batch rows (see the module
+    docstring).  ``batched[i]``: whether args[i]'s dim 0 is the batch
+    (else it is made whole on every rank); ``given_back[j]``: whether
+    output j is laid out like ``args[0]`` (else it keeps the rows'
+    split: a final state).  The first argument must be a DTensor."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.shardings import row_placements
+    lead = args[0]
+    mesh = lead.device_mesh
+    rows, whole, summed = row_placements(lead.placements)
+    run = local_map(
+        fn, out_placements=tuple(rows for _ in given_back),
+        in_placements=tuple((rows if b else whole) for b in batched),
+        in_grad_placements=tuple((rows if b else summed) for b in batched),
+        device_mesh=mesh, redistribute_inputs=True)
+    outs = run(*args)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    back = tuple(o.redistribute(mesh, lead.placements) if g else o
+                 for o, g in zip(outs, given_back))
+    return back if len(back) > 1 else back[0]
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, scale: Optional[float] = None):
     """Model-layout flash attention: q (B,S,Hq,d), k/v (B,S,Hkv,d) ->
@@ -65,9 +109,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                           dict(causal=causal, window=window,
                                q_offset=q_offset))
     fn = _fa.flash_attention_plain if _PLAIN[0] else _fa.flash_attention
-    o = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-           causal=causal, window=window, q_offset=q_offset, scale=scale)
-    return o.transpose(1, 2)
+
+    def run(q, k, v):
+        o = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               causal=causal, window=window, q_offset=q_offset, scale=scale)
+        return o.transpose(1, 2)
+    if _any_dtensor(q, k, v):
+        return _on_rows(run, (q, k, v), (True, True, True), (True,))
+    return run(q, k, v)
 
 
 def decode_attention(q, k_cache, v_cache, lens, *, k_new=None, v_new=None,
@@ -80,6 +129,8 @@ def decode_attention(q, k_cache, v_cache, lens, *, k_new=None, v_new=None,
         return _TRACER[0]("decode_attention", (q, k_cache, v_cache, lens),
                           dict(k_new=k_new, v_new=v_new,
                                slot_mask=slot_mask))
+    _refuse_dtensors("decode_attention", q, k_cache, v_cache, lens, k_new,
+                     v_new, slot_mask)
     fn = _dec.decode_attention_plain if _PLAIN[0] else _dec.decode_attention
     kn = None if k_new is None else k_new.transpose(1, 2)
     vn = None if v_new is None else v_new.transpose(1, 2)
@@ -92,6 +143,7 @@ def lora_merge(W, A, B, scale: float):
     """Fused W + scale*(A@B) over stacked layers: W (L,Din,Dout)."""
     if _TRACER[0] is not None:
         return _TRACER[0]("lora_merge", (W, A, B), {})
+    _refuse_dtensors("lora_merge", W, A, B)
     fn = _lm.lora_merge_plain if _PLAIN[0] else _lm.lora_merge
     return fn(W, A, B, scale)
 
@@ -104,6 +156,13 @@ def ssd_scan(x, dt, A, Bm, Cm, initial_state=None):
         return _TRACER[0]("ssd_scan", (x, dt, A, Bm, Cm),
                           dict(initial_state=initial_state))
     fn = _ssd.ssd_scan_plain if _PLAIN[0] else _ssd.ssd_scan
+    if _any_dtensor(x, dt, A, Bm, Cm, initial_state):
+        if initial_state is None:
+            return _on_rows(lambda *a: fn(*a, None), (x, dt, A, Bm, Cm),
+                            (True, True, False, True, True), (True, False))
+        return _on_rows(fn, (x, dt, A, Bm, Cm, initial_state),
+                        (True, True, False, True, True, True),
+                        (True, False))
     return fn(x, dt, A, Bm, Cm, initial_state)
 
 
@@ -114,6 +173,12 @@ def rglru_scan(log_a, bx, h0=None):
     if _TRACER[0] is not None:
         return _TRACER[0]("rglru_scan", (log_a, bx), dict(h0=h0))
     fn = _rg.rglru_scan_plain if _PLAIN[0] else _rg.rglru_scan
+    if _any_dtensor(log_a, bx, h0):
+        if h0 is None:
+            return _on_rows(lambda a, b: fn(a, b, None), (log_a, bx),
+                            (True, True), (True, False))
+        return _on_rows(fn, (log_a, bx, h0), (True, True, True),
+                        (True, False))
     return fn(log_a, bx, h0)
 
 

@@ -224,12 +224,6 @@ def _zip_map(fn: Callable, tree, spec):
     return fn(tree, spec)
 
 
-def _axes(entry) -> Tuple[str, ...]:
-    if entry is None:
-        return ()
-    return tuple(entry) if isinstance(entry, tuple) else (entry,)
-
-
 def local_shape(shape, spec, mesh: Mesh) -> Tuple[int, ...]:
     """Rank 0's shard of a tensor of ``shape`` under ``spec``: each
     sharded dim split over the product of its axes, the first shard
@@ -237,7 +231,7 @@ def local_shape(shape, spec, mesh: Mesh) -> Tuple[int, ...]:
     out = list(shape)
     for d, entry in enumerate(tuple(spec)[:len(shape)]):
         n = 1
-        for a in _axes(entry):
+        for a in shd.spec_axes(entry):
             n *= mesh.shape[a]
         out[d] = -(-out[d] // n)
     return tuple(out)
@@ -255,15 +249,6 @@ def local_bytes(tree, specs, mesh: Mesh) -> int:
     return total[0]
 
 
-def _placements(spec, mesh: Mesh):
-    from torch.distributed.tensor import Replicate, Shard
-    pl = [Replicate()] * len(mesh.axis_names)
-    for d, entry in enumerate(tuple(spec)):
-        for a in _axes(entry):
-            pl[mesh.axis_names.index(a)] = Shard(d)
-    return pl
-
-
 def _contiguous_stride(shape) -> Tuple[int, ...]:
     stride, acc = [], 1
     for s in reversed(tuple(shape)):
@@ -277,32 +262,10 @@ def _distribute(tree, specs, dmesh, mesh: Mesh):
 
     def place(t, spec):
         local = _meta(local_shape(t.shape, spec, mesh), t.dtype)
-        return DTensor.from_local(local, dmesh, _placements(spec, mesh),
+        return DTensor.from_local(local, dmesh, shd.placements(spec, mesh),
                                   run_check=False, shape=tuple(t.shape),
                                   stride=_contiguous_stride(t.shape))
     return _zip_map(place, tree, specs)
-
-
-_REGISTERED = [False]
-
-
-def _register_strategies() -> None:
-    """Sharding strategies DTensor lacks for ops of the step, registered
-    once a process: ``mm`` with an ``out_dtype`` (the unembedding's bf16
-    product into float32 logits, ``transformer._Float32Product``) shards
-    by rows or by columns, never whole or partial on a device (DTensor's
-    choice does not weigh the output: whole or partial (T, V) float32
-    logits would be tens of GB a device)."""
-    if _REGISTERED[0]:
-        return
-    from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import register_sharding
-
-    @register_sharding(torch.ops.aten.mm.dtype)
-    def _mm_dtype(x, y, out_dtype):
-        return [([Shard(0)], [Shard(0), Replicate(), None]),
-                ([Shard(1)], [Replicate(), Shard(1), None])]
-    _REGISTERED[0] = True
 
 
 @contextlib.contextmanager
@@ -313,7 +276,7 @@ def fake_mesh(mesh: Mesh):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    _register_strategies()
+    shd.register_strategies()
     if dist.is_initialized():
         dist.destroy_process_group()
     # DTensor warns of every two-step redistribution; the counts say it

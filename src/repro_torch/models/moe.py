@@ -181,11 +181,12 @@ def _device_groups(cfg, p, xt, act, capacity_factor):
     each device routes its own group, the expert weights whole on it, as
     the reference's per-group routing runs under its sharding.  Returns
     (y, probs, onehot), split over the devices as ``xt``."""
-    from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.shardings import row_placements
     names = ("router", "w_gate", "w_up", "w_down")
     tok = tuple(xt.placements)
-    full = (Replicate(),) * xt.device_mesh.ndim
+    _, full, summed = row_placements(tok)
 
     def group(xl, *weights):
         y, (probs, onehot), _ = _capacity_group(
@@ -193,6 +194,7 @@ def _device_groups(cfg, p, xt, act, capacity_factor):
         return y, probs, onehot
     run = local_map(group, out_placements=(tok, tok, tok),
                     in_placements=(tok,) + (full,) * len(names),
+                    in_grad_placements=(tok,) + (summed,) * len(names),
                     redistribute_inputs=True)
     return run(xt, *(p[k] for k in names))
 

@@ -379,7 +379,11 @@ def embed_tokens(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     if "embeds" in batch:
         x = batch["embeds"]
     else:
-        x = params["embed"][batch["tokens"]]
+        # the embedding op, not indexing: its backward on DTensors
+        # (a train step sharded over a process group) has a sharding rule
+        # in every torch version the port meets, where index_put's fails
+        # on a batch-split gradient in torch 2.11
+        x = torch.nn.functional.embedding(batch["tokens"], params["embed"])
     if "positions" in batch:
         return constrain(x, "act"), batch["positions"]
     B, S = x.shape[:2]

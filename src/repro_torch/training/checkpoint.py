@@ -13,10 +13,18 @@ Paths join dict keys (sorted) and sequence indices with "/", so a
 does: a checkpoint one package writes restores in the other when the
 trees match.  bfloat16 (which npz cannot hold) widens to float32 on save,
 losslessly, and narrows back to the template leaf's dtype on restore.
-Arrays are saved whole; ``restore`` puts them on one device.  An async
-save copies the tree to host memory first and writes on a background
-thread; an error there surfaces at the next ``wait()`` (every ``save``
-and ``restore`` waits first).
+Arrays are saved whole, so a checkpoint does not depend on the mesh it
+was saved from.  An async save copies the tree to host memory first and
+writes on a background thread; an error there surfaces at the next
+``wait()`` (every ``save`` and ``restore`` waits first).
+
+A tree of DTensors (a train state sharded over a process group) saves
+from every rank: each leaf is gathered whole (``full_tensor()``), every
+rank waits on a barrier, and rank 0 alone writes, so ``LATEST`` never
+names a step some rank has not reached.  ``restore`` lays each array out
+on any mesh: a DTensor template's own placements, or the placements
+``shardings`` gives on the ``DeviceMesh`` passed as ``device`` (the
+elastic restart onto fewer ranks).
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _flatten_with_paths(tree, prefix="") -> Dict[str, Any]:
@@ -44,24 +53,37 @@ def _flatten_with_paths(tree, prefix="") -> Dict[str, Any]:
     return out
 
 
-def _unflatten(paths: Dict[str, Any], template, fn) -> Any:
-    """The structure of ``template`` with ``fn(template_leaf, array)`` at
-    each leaf, the array taken from ``paths``."""
-    def build(t, prefix=""):
+def _unflatten(paths: Dict[str, Any], template, fn, layout=None) -> Any:
+    """The structure of ``template`` with ``fn(template_leaf, array[,
+    layout_leaf])`` at each leaf, the array taken from ``paths`` and the
+    layout leaf (a leaf's placements) from ``layout``, a tree of the same
+    structure, where one is given."""
+    def build(t, lay, prefix=""):
         if isinstance(t, dict):
-            return {k: build(v, f"{prefix}{k}/") for k, v in t.items()}
+            return {k: build(v, None if lay is None else lay[k],
+                             f"{prefix}{k}/") for k, v in t.items()}
         if isinstance(t, (tuple, list)):
-            vals = [build(v, f"{prefix}{i}/") for i, v in enumerate(t)]
+            vals = [build(v, None if lay is None else lay[i],
+                          f"{prefix}{i}/") for i, v in enumerate(t)]
             return type(t)(*vals) if hasattr(t, "_fields") else \
                 type(t)(vals)
-        return fn(t, paths[prefix[:-1]])
-    return build(template)
+        if lay is None:
+            return fn(t, paths[prefix[:-1]])
+        return fn(t, paths[prefix[:-1]], lay)
+    return build(template, layout)
+
+
+def _is_dtensor(a) -> bool:
+    return type(a).__name__ == "DTensor"
 
 
 def _to_host(a) -> np.ndarray:
     """A host copy of ``a`` that shares no memory with it (``.cpu()`` of
     a CPU tensor would be the tensor itself), so that training may update
-    the leaf in place while an async write runs."""
+    the leaf in place while an async write runs.  A DTensor is gathered
+    whole first (a collective: every rank calls this)."""
+    if _is_dtensor(a):
+        a = a.full_tensor()
     if isinstance(a, torch.Tensor):
         # npz has no bf16: widen, losslessly
         dtype = torch.float32 if a.dtype == torch.bfloat16 else a.dtype
@@ -69,12 +91,27 @@ def _to_host(a) -> np.ndarray:
     return np.array(a, copy=True)
 
 
-def _to_tensor(template, a: np.ndarray, device) -> torch.Tensor:
+def _to_tensor(template, a: np.ndarray, device, placements=None
+               ) -> torch.Tensor:
     """``a`` as a tensor of the template leaf's dtype on ``device`` (the
-    template's device by default)."""
-    dev = device if device is not None else template.device
+    template's device by default), or as a DTensor: on ``device`` (a
+    ``DeviceMesh``) with ``placements``, else, for a DTensor template,
+    laid out as the template.  Every rank holds the whole array and keeps
+    its own shard of it."""
     t = torch.from_numpy(np.array(a))         # a copy that keeps 0-d
-    return t.to(device=dev, dtype=template.dtype)
+    if isinstance(placements, torch.device):  # a one-device mesh's
+        device, placements = placements, None
+    if placements is None and _is_dtensor(template):
+        device, placements = template.device_mesh, template.placements
+    if placements is None:
+        dev = device if device is not None else template.device
+        return t.to(device=dev, dtype=template.dtype)
+    from torch.distributed.tensor import distribute_tensor
+    if device is None:
+        raise ValueError("placements need the DeviceMesh they are on "
+                         "(restore(..., device=device_mesh))")
+    t = t.to(device=device.device_type, dtype=template.dtype)
+    return distribute_tensor(t, device, placements, src_data_rank=None)
 
 
 class Checkpointer:
@@ -91,10 +128,16 @@ class Checkpointer:
         """Snapshot ``tree`` (a tree of tensors or arrays) with
         JSON-serialisable extras.  The tree is copied to host memory before
         this returns, so training may update it while an async write
-        runs."""
+        runs.  Under a process group every rank calls this: DTensor
+        leaves are gathered, every rank waits on a barrier, and rank 0
+        writes."""
         self.wait()
         host = _flatten_with_paths(tree)
         host = {k: _to_host(v) for k, v in host.items()}
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
+            if dist.get_rank() != 0:
+                return
 
         def work():
             try:
@@ -165,11 +208,14 @@ class Checkpointer:
             return int(f.read().strip().split("_")[1])
 
     def restore(self, template: Any, step: Optional[int] = None,
-                device=None) -> Tuple[Any, Dict]:
+                device=None, shardings=None) -> Tuple[Any, Dict]:
         """Restore into the structure of ``template`` (a tree of tensors):
         each array cast to its template leaf's dtype and put on ``device``
-        (each template leaf's own device by default).  Returns (tree,
-        extras)."""
+        (each template leaf's own device by default; a DTensor leaf is
+        laid out as it is).  ``shardings``, a tree like ``template`` of
+        DTensor placements (``shardings.named`` on a mesh of several
+        devices), lays each array out by its placements on ``device``,
+        then the ``DeviceMesh`` they are on.  Returns (tree, extras)."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -180,5 +226,6 @@ class Checkpointer:
         with np.load(os.path.join(self.dir, name, "arrays.npz")) as data:
             flat = {k: data[k] for k in data.files}
         tree = _unflatten(flat, template,
-                          lambda t, a: _to_tensor(t, a, device))
+                          lambda t, a, pl=None: _to_tensor(t, a, device, pl),
+                          shardings)
         return tree, manifest["extra"]

@@ -8,6 +8,13 @@ float32 whatever the parameters' dtype; each update computes in float32
 and casts the new parameter back to its dtype.  ``adamw_update`` updates
 the parameters and moments in place, one leaf at a time — the analogue of
 the reference's donated train state — and returns them.
+
+Leaves may be DTensors (a train state sharded over a process group,
+ZeRO: each moment laid out as its parameter).  ``global_norm`` then
+reduces each leaf's sum of squares across the ranks, so that every rank
+clips by the same scale, and ``adamw_update`` lays each gradient out as
+its parameter (a reduce-scatter where it comes back partial) and updates
+each rank's own shards, never gathering a leaf.
 """
 from __future__ import annotations
 
@@ -61,9 +68,15 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def _local(x) -> torch.Tensor:
+    """This rank's shard of a DTensor (the tensor itself otherwise)."""
+    return x.to_local() if type(x).__name__ == "DTensor" else x
+
+
 def init_opt_state(params) -> OptState:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p):     # laid out as the parameter (a DTensor's shards)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
     dev = tree_leaves(params)[0].device
     return OptState(torch.zeros((), dtype=torch.int32, device=dev),
                     tree_map(zeros, params), tree_map(zeros, params))
@@ -82,10 +95,14 @@ def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares
+    (a DTensor leaf's summed across the ranks: the norm is a plain tensor,
+    the same on every rank)."""
     total = None
     for x in tree_leaves(tree):
         sq = x.float().square().sum()
+        if type(sq).__name__ == "DTensor":
+            sq = sq.full_tensor()
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -115,12 +132,16 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: OptState
     gn = global_norm(grads)
     scale = _clip_scale(gn, cfg.grad_clip)
     step = state.step + 1
-    lr = lr_at(cfg, step)
-    b1c = 1.0 - cfg.b1 ** step.to(torch.float32)
-    b2c = 1.0 - cfg.b2 ** step.to(torch.float32)
+    t = _local(step).to(torch.float32)   # a replicated step: every rank's
+    lr = lr_at(cfg, t)
+    b1c = 1.0 - cfg.b1 ** t
+    b2c = 1.0 - cfg.b2 ** t
     flat = zip(tree_leaves(params), tree_leaves(grads),
                tree_leaves(state.m), tree_leaves(state.v))
     for p, g, m, v in flat:
+        if type(p).__name__ == "DTensor":
+            g = g.redistribute(p.device_mesh, p.placements)
+            p, g, m, v = _local(p), _local(g), _local(m), _local(v)
         g = g.float() * scale
         m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * g.square())

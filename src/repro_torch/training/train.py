@@ -11,7 +11,7 @@ Functions carry the gradients through them.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -89,6 +89,13 @@ def compress_grads(grads, method: str):
 
 
 def _microbatches(batch: Dict, accum: int):
+    """The whole batch split in the reference's order: microbatch i holds
+    rows [i n, (i + 1) n).  A DTensor batch is refused: slicing it along
+    its sharded batch dim would gather it (distribute each microbatch
+    instead, ``make_train_step(shard_batch=)``)."""
+    if any(type(v).__name__ == "DTensor" for v in batch.values()):
+        raise TypeError("split the whole batch, then distribute each "
+                        "microbatch (make_train_step(shard_batch=...))")
     B = (batch["tokens"] if "tokens" in batch else batch["embeds"]).shape[0]
     if B % accum:
         raise ValueError(f"batch {B} is not a multiple of accum {accum}")
@@ -97,9 +104,16 @@ def _microbatches(batch: Dict, accum: int):
             for i in range(accum)]
 
 
+def _replicated(x):
+    """A DTensor metric (a replicated or partial scalar) as a plain
+    tensor, the same on every rank."""
+    return x.full_tensor() if type(x).__name__ == "DTensor" else x
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
                     remat: bool = True, accum: int = 1,
-                    grad_compression: str = "none"
+                    grad_compression: str = "none",
+                    shard_batch: Optional[Callable[[Dict], Dict]] = None
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState,
                                                             Dict]]:
     """Returns train_step(state, batch) -> (state, metrics).
@@ -109,17 +123,23 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
     divided by ``accum``; ``metrics["ce"]`` is then the mean loss over the
     microbatches and the other metrics are the last microbatch's, as in
     the reference.  The state's parameters and moments are updated in
-    place (the reference donates its state) and returned."""
+    place (the reference donates its state) and returned.
+
+    ``shard_batch`` lays out each (micro)batch of whole tensors for a
+    sharded state (``shardings.distribute`` by the batch specs): the step
+    takes the whole batch and splits it before distributing.  The
+    metrics come back as plain tensors, the same on every rank."""
     grad_fn = value_and_grad(make_loss_fn(cfg, remat=remat))
+    place = shard_batch or (lambda b: b)
 
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict]:
         if accum == 1:
-            (loss, metrics), grads = grad_fn(state.params, batch)
+            (loss, metrics), grads = grad_fn(state.params, place(batch))
         else:
             grads, loss = None, 0.0
             for mb in _microbatches(batch, accum):
-                (l, metrics), g = grad_fn(state.params, mb)
+                (l, metrics), g = grad_fn(state.params, place(mb))
                 grads = (tree_map(lambda a: a.float(), g) if grads is None
                          else tree_map(lambda a, b: a + b.float(), grads, g))
                 loss = loss + l
@@ -133,7 +153,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
         metrics = dict(metrics)
         metrics.update(om)
         metrics["loss"] = loss
-        return TrainState(params, opt), metrics
+        return TrainState(params, opt), {k: _replicated(v)
+                                         for k, v in metrics.items()}
 
     return train_step
 

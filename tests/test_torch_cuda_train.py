@@ -2,7 +2,12 @@
 SSD and RG-LRU kernels (their autograd Functions) against autograd through
 the plain versions, a train step through the kernels against one through
 ``plain_versions()``, and serving after training (the captured decode step
-replays the eager one bit for bit with the Functions in place).
+replays the eager one bit for bit with the Functions in place).  On one
+NCCL rank (the process group ``torchrun --nproc-per-node 1`` gives), the
+three train-path kernels given DTensors go through the DTensor route
+(``local_map``) and launch as on plain tensors, decode attention and the
+LoRA merge refuse a DTensor, and a train step on a DTensor state equals
+one on plain tensors.
 
 Every test here is marked ``cuda`` and skips without a card (decided in
 the ``card`` fixture).  Run them on the card with
@@ -23,6 +28,7 @@ import pytest
 import torch
 
 from repro_torch.configs.base import get_arch
+from repro_torch.distributed import shardings as shd
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import rglru_scan as rg
@@ -233,3 +239,165 @@ def test_serving_after_training_replays_the_eager_step(card):
     eag.run()
     assert [r.generated for r in creqs] == [r.generated for r in ereqs]
     assert cap.batcher.compile_stats()["decode_compiles"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the DTensor route: one NCCL rank
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(card):
+    """A process group of one NCCL rank (what ``torchrun --nproc-per-node
+    1`` gives a process) and the (1, 1) ('data', 'model') mesh over it;
+    the group is taken down after the module."""
+    import os
+    import socket
+    from unittest import mock
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import Mesh, init_distributed
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port)}
+    with mock.patch.dict(os.environ, env):
+        info = init_distributed()
+    assert info.backend == "nccl" and info.device == card
+    mesh = Mesh(("data", "model"), (1, 1), (card,))
+    yield mesh, mesh.device_mesh()
+    dist.destroy_process_group()
+
+
+def _dtensor_inputs(mesh, dmesh, inputs, whole):
+    """Each input as a leaf DTensor split (dp, seq) by the mesh, or
+    replicated where ``whole`` holds its index."""
+    from torch.distributed.tensor import distribute_tensor
+    out = []
+    for i, t in enumerate(inputs):
+        if t is None:
+            out.append(None)
+            continue
+        spec = shd.P() if i in whole else shd.P("data", "model")
+        out.append(distribute_tensor(t.detach(), dmesh, shd.placements(
+            spec, mesh)).requires_grad_())
+    return out
+
+
+def _route_cases(card):
+    g = _gen(card, 9)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=card)
+    B, S = 2, 256
+    return {
+        # (call, inputs, indices taken whole)
+        "flash_attention": (
+            lambda q, k, v: ops.flash_attention(q, k, v, causal=True),
+            (rnd(B, S, 32, 64), rnd(B, S, 32, 64), rnd(B, S, 32, 64)), ()),
+        "ssd_scan": (
+            ops.ssd_scan,
+            (rnd(B, S, 48, 64),
+             torch.nn.functional.softplus(rnd(B, S, 48)),
+             -torch.linspace(1.0, 16.0, 48, device=card),
+             rnd(B, S, 128), rnd(B, S, 128), None), (2,)),
+        "rglru_scan": (
+            ops.rglru_scan,
+            (-0.4 * torch.sigmoid(rnd(B, S, 2560)), rnd(B, S, 2560), None),
+            ()),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "ssd_scan",
+                                    "rglru_scan"])
+def test_dtensor_route_matches_plain_tensors(card, nccl_mesh, kernel):
+    """flash, the SSD scan and the RG-LRU scan given DTensors on one NCCL
+    rank (``kernels/ops.py``'s ``local_map`` route) launch the kernel as
+    the same call on plain tensors does: outputs and every input's
+    gradient, float32, within 1e-4 of max |g| of the plain-tensor call."""
+    mesh, dmesh = nccl_mesh
+    call, inputs, whole = _route_cases(card)[kernel]
+    d_in = _dtensor_inputs(mesh, dmesh, inputs, whole)
+    p_in = [None if t is None else t.detach().clone().requires_grad_()
+            for t in inputs]
+    runs, kinds = [], []
+    for ins in (d_in, p_in):
+        ops.reset_launch_counts()
+        outs = call(*ins)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        kinds.append(type(outs[0]).__name__)
+        wanted = [t for t in ins if t is not None]
+        gen = _gen(card, 10)
+        ws = [torch.randn(o.shape, generator=gen, device=card) for o in outs]
+        if type(outs[0]).__name__ == "DTensor":
+            ws = [torch.distributed.tensor.distribute_tensor(
+                w, dmesh, o.placements) for w, o in zip(ws, outs)]
+        grads = torch.autograd.grad(outs, wanted, ws)
+        torch.cuda.synchronize()
+        full = [t.full_tensor() if type(t).__name__ == "DTensor" else t
+                for t in (*outs, *grads)]
+        runs.append((full, ops.launch_counts()[kernel]))
+    (got, n_dt), (want, n_plain) = runs
+    assert kinds == ["DTensor", "Tensor"]
+    assert n_dt == n_plain > 0, (n_dt, n_plain)
+    _hold(got, want, torch.float32, f"{kernel} on DTensors")
+
+
+def test_serving_kernels_refuse_dtensors(card, nccl_mesh):
+    """decode attention and the LoRA merge serve one device: given a
+    DTensor each raises a TypeError naming the call, and launches
+    nothing."""
+    from torch.distributed.tensor import distribute_tensor
+    mesh, dmesh = nccl_mesh
+
+    def dt(*shape):
+        return distribute_tensor(torch.zeros(shape, device=card), dmesh,
+                                 shd.placements(shd.P(), mesh))
+    lens = torch.ones(2, dtype=torch.int32, device=card)
+    ops.reset_launch_counts()
+    with pytest.raises(TypeError, match="decode_attention"):
+        ops.decode_attention(dt(2, 1, 4, 64), dt(2, 64, 4, 64),
+                             dt(2, 64, 4, 64), lens)
+    with pytest.raises(TypeError, match="lora_merge"):
+        ops.lora_merge(dt(2, 64, 64), dt(2, 64, 4), dt(2, 4, 64), 1.0)
+    assert sum(ops.launch_counts().values()) == 0
+
+
+def test_sharded_train_step_matches_plain_state(card, nccl_mesh):
+    """One ``make_train_step`` of the reduced qwen3 (kernel-sized heads,
+    float32) with its state as DTensors laid out FSDP on the one-rank
+    mesh, against the same step on plain tensors: loss within 1e-5
+    relative, every parameter within 1e-4 of its max |p|; flash launched
+    as often on both."""
+    from repro_torch.distributed.context import ShardingPolicy, use_policy
+    mesh, dmesh = nccl_mesh
+    shd.register_strategies()
+    cfg = _reduced("qwen3-1.7b")
+    opt = topt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    g = _gen(card, 11)
+    toks = torch.randint(0, cfg.vocab_size, (2, 96), generator=g,
+                         device=card)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+
+    def fresh():
+        p = T.init_params(cfg, _gen(card, 12), device=card)
+        return ttrain.TrainState(p, topt.init_opt_state(p))
+    pspec = shd.param_specs(cfg, fresh().params, mesh, mode="fsdp")
+    state = shd.distribute(fresh(), ttrain.TrainState(
+        pspec, topt.OptState(shd.P(), pspec, pspec)), mesh)
+    step = ttrain.make_train_step(
+        cfg, opt, remat=True, shard_batch=lambda b: shd.distribute(
+            b, shd.batch_specs(cfg, b, mesh), mesh))
+    ops.reset_launch_counts()
+    with use_policy(ShardingPolicy(mesh)):
+        sd, md = step(state, batch)
+    n_dt = ops.launch_counts()["flash_attention"]
+    ops.reset_launch_counts()
+    sp, mp = ttrain.make_train_step(cfg, opt, remat=True)(fresh(), batch)
+    assert n_dt == ops.launch_counts()["flash_attention"] > 0
+    assert abs(float(md["loss"]) - float(mp["loss"])) <= \
+        1e-5 * abs(float(mp["loss"]))
+    for a, b in zip(topt.tree_leaves(sd.params), topt.tree_leaves(sp.params)):
+        a = a.full_tensor()
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()

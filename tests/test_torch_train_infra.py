@@ -159,6 +159,18 @@ def test_mesh_helpers_and_named():
                                       "b": {"c": torch.device("cpu")}}
     with pytest.raises(ValueError):
         tshd.named(tmesh.make_production_mesh(), spec)
+    # a mesh of more devices: each leaf's DTensor placements, one a mesh
+    # dim, Shard(d) where the spec puts that axis on tensor dim d
+    from torch.distributed.tensor import Replicate, Shard
+    four = tmesh.Mesh(("data", "model"), (2, 2), (torch.device("cpu"),) * 4)
+    spec4 = {"a": tshd.P("data", None), "b": {"c": tshd.P()},
+             "d": tshd.P(None, ("data", "model")), "e": tshd.P("model",
+                                                               "data")}
+    assert tshd.named(four, spec4) == {
+        "a": (Shard(0), Replicate()), "b": {"c": (Replicate(), Replicate())},
+        "d": (Shard(1), Shard(1)), "e": (Shard(1), Shard(0))}
+    with pytest.raises(ValueError, match="a world of 1"):
+        four.device_mesh()
     with pytest.raises(ValueError):
         tmesh.make_pipeline_mesh(3)
     x = torch.ones(2, 3)
@@ -486,9 +498,18 @@ def test_launcher_resume_equals_uninterrupted(tmp_path):
             np.testing.assert_array_equal(za[k], zb[k])
 
 
-@pytest.mark.parametrize("flag", ["--production-mesh", "--distributed-init"])
-def test_launcher_refuses_many_cards(flag):
-    with pytest.raises(SystemExit, match="one"):
+@pytest.mark.parametrize("flag,message", [
+    ("--production-mesh", "16 x 16 mesh over 256 ranks; the world is 1"),
+    ("--distributed-init", "missing RANK, WORLD_SIZE, LOCAL_RANK, "
+                           "LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT")])
+def test_launcher_refuses_many_cards(flag, message, monkeypatch):
+    """A process alone: ``--production-mesh`` needs 256 ranks and names
+    the world it has; ``--distributed-init`` needs torchrun's environment
+    and names the variables missing (``test_torch_fsdp`` runs both under
+    torchrun)."""
+    for k in tmesh.TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(SystemExit, match=message):
         tlaunch.main([flag, "--device", "cpu"])
 
 
