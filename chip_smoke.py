@@ -252,7 +252,8 @@ Phases (any failure exits non-zero and prints no result line):
      train_4k, prefill_32k and decode_32k and one ``--pipeline`` cell
      (qwen3-1.7b prefill_32k), on a pool of worker processes (meta
      DTensors over a fake process group: nothing on the card); every
-     applicable cell must pass; the wall time is printed;
+     applicable cell must pass; each production cell's peak per device
+     and the ops it ran replicated, and the wall time, are printed;
    - 11b: the dry run on a one-card mesh held against the card, at phase
      10b's train step (opt-1.3b, 8 x 512, bf16, remat) and at a replayed
      decode step (opt-1.3b, 4 slots, max_len 1024; the peak statistics
@@ -276,10 +277,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``launch.train.main`` and has rank 0 write its result and counts):
    - 12a: phase 10b's run with ``--distributed-init`` on one NCCL rank:
      the train state as DTensors on the host mesh (1, 1), flash through
-     the DTensor route (``local_map``); step 1's loss within 1e-3
-     relative of 10b's, every loss finite, the last below the first, 48
-     flash launches a step; its step time, tokens/s and peak memory
-     printed beside 10b's;
+     the DTensor route (``local_map``); every loss equal to 10b's, every
+     loss finite, the last below the first, 48 flash launches a step;
+     its step time, tokens/s and peak memory printed beside 10b's;
    - 12b: the reduced opt-1.3b on the card host's CPU, 3 steps on 2
      ``gloo`` ranks against one process: losses within 1e-5 relative,
      AdamW's step, m and v within 1e-4 of each leaf's max |x|, the
@@ -289,7 +289,17 @@ Phases (any failure exits non-zero and prints no result line):
      process, every leaf equal; resumed to step 4 on one rank and in one
      process, held the same way;
    - 12c: 12a on min(count, 4) cards when the machine has two or more,
-     else ``"cross_card": "not run: 1 card"``.
+     else ``"cross_card": "not run: 1 card"``;
+   - 12d: the launcher's layout with 'model' > 1, on 4 ``gloo`` ranks of
+     the card host's CPU under its torch (printed), each rank through
+     this script's ``--rows-worker`` entry: the mesh (2, 2), the batch
+     over 'data', the sequence over 'model', the state FSDP as
+     DTensors, against one process.  The reduced opt-1.3b's 3 steps:
+     losses within 1e-5 relative, the state held as 12b holds it;
+     reduced mamba2-780m and recurrentgemma-2b: the loss within 1e-5
+     relative and every gradient leaf within 1e-4 of its max |g|;
+     reduced qwen2-moe-a2.7b the same against one process under a (2, 2)
+     policy, whose 4 token groups are the reference's contiguous ones.
    The kernels line gains ``train_launches_by_part["12a"]`` (and 12c's);
    a ``{"train_distributed": ...}`` line before it holds phase 12's
    numbers.
@@ -2806,6 +2816,13 @@ def dryrun_sweep():
     sweep = [r for j, r, _ in done if j[3]]
     peaks = [r["memory"]["peak_per_device"] / 2 ** 30 for r in sweep]
     replicated = sorted({op for r in sweep for op in r["replicated_ops"]})
+    cells = {}
+    for r in sweep:
+        tag = f"{r['arch']} {r['shape']} {r['mesh']}"
+        cells[tag] = dict(peak_gib=r["memory"]["peak_per_device"] / 2 ** 30,
+                          replicated_ops=r["replicated_ops"])
+        print(f"  11a {tag}: peak/dev {cells[tag]['peak_gib']:.2f} GiB, "
+              f"replicated {r['replicated_ops'] or 'none'}")
     print(f"  11a dryrun --all --skip-cost over both meshes: {len(sweep)} "
           f"cells, peak per device {min(peaks):.2f}-{max(peaks):.2f} GiB; "
           f"ops run replicated: {replicated}")
@@ -2827,7 +2844,7 @@ def dryrun_sweep():
     print(f"  11a {len(jobs)} dry runs in {wall:.1f} s wall "
           f"({DRYRUN_WORKERS} worker processes)")
     return {"cells": len(jobs), "wall_s": wall, "costed": costed,
-            "replicated_ops": replicated}
+            "replicated_ops": replicated, "production_cells": cells}
 
 
 def _hold_dryrun(tag, dr, real_args, real_peak, measured_s, smi):
@@ -3066,22 +3083,16 @@ def train_worker(out: str, argv) -> int:
     return 0
 
 
-def torchrun(nproc: int, argv, tag: str) -> dict:
-    """``torchrun --standalone --nproc-per-node nproc`` of ``launch.train``
-    with ``argv`` (through ``train_worker``): rank 0's result.  Fails
-    unless every rank exits 0; on a timeout the whole process group is
-    killed."""
+def _run_ranks(nproc: int, args, tag: str, **env) -> str:
+    """``torchrun --standalone --nproc-per-node nproc chip_smoke.py ARGS``
+    (``env`` added to the ranks' environment): its log.  Fails unless
+    every rank exits 0; on a timeout the whole process group is killed."""
     import os
     import signal
-    out = ROOT / "build" / f"chip_smoke_{tag}.json"
-    out.parent.mkdir(exist_ok=True)
-    out.unlink(missing_ok=True)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(nproc), str(ROOT / "chip_smoke.py"),
-           "--train-worker", str(out), "--", *argv]
-    print(f"  torchrun --standalone --nproc-per-node {nproc} -m "
-          f"repro_torch.launch.train {' '.join(argv)}")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+           *map(str, args)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **env)
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
@@ -3092,11 +3103,24 @@ def torchrun(nproc: int, argv, tag: str) -> dict:
         log, _ = proc.communicate()
         raise SmokeError(f"{tag}: torchrun did not end in "
                          f"{TORCHRUN_TIMEOUT} s: {log[-3000:]}")
+    require(proc.returncode == 0,
+            f"{tag}: torchrun exited {proc.returncode}: {log[-6000:]}")
+    return log
+
+
+def torchrun(nproc: int, argv, tag: str) -> dict:
+    """``launch.train`` with ``argv`` on ``nproc`` ranks (through
+    ``train_worker``): rank 0's result."""
+    out = ROOT / "build" / f"chip_smoke_{tag}.json"
+    out.parent.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    print(f"  torchrun --standalone --nproc-per-node {nproc} -m "
+          f"repro_torch.launch.train {' '.join(argv)}")
+    log = _run_ranks(nproc, ["--train-worker", out, "--", *argv], tag)
     for line in log.splitlines():
         if line.startswith(("mesh:", "step ", "resumed")):
             print("    " + line)
-    require(proc.returncode == 0 and out.exists(),
-            f"{tag}: torchrun exited {proc.returncode}: {log[-6000:]}")
+    require(out.exists(), f"{tag}: rank 0 wrote no result: {log[-6000:]}")
     return json.loads(out.read_text())
 
 
@@ -3114,8 +3138,9 @@ def sharded_train(torch, ops, train_step, nproc: int, tag: str):
     torchrun with ``--distributed-init``: an NCCL group, the train state
     as DTensors laid out FSDP on the host mesh (nproc, 1), flash reached
     through the DTensor route.  Step 1's loss within 1e-3 relative of
-    10b's (same seed, same batch), every loss finite, the last below the
-    first, 48 flash launches a step on rank 0 and nothing else."""
+    10b's (same seed, same batch), on one rank every loss equal to 10b's,
+    every loss finite, the last below the first, 48 flash launches a step
+    on rank 0 and nothing else."""
     from repro_torch.configs.base import get_arch
     torch.cuda.empty_cache()
     res = torchrun(nproc, TRAIN_ARGV + ["--distributed-init"], tag)
@@ -3125,7 +3150,8 @@ def sharded_train(torch, ops, train_step, nproc: int, tag: str):
     rel = abs(losses[0] - ref[0]) / abs(ref[0])
     want = 2 * cfg.n_layers * steps
     out = dict(world=res["world"], mesh=res["mesh"], losses=losses,
-               step1_rel_to_10b=rel, **_step_summary(res, B, S),
+               step1_rel_to_10b=rel, losses_bit_equal_to_10b=losses == ref,
+               **_step_summary(res, B, S),
                state_bytes_rank0=res["state_bytes"],
                flash_launches_per_step=counts["flash_attention"] // steps)
     out["10b"] = {k: train_step[k] for k in ("step_ms_median",
@@ -3144,6 +3170,10 @@ def sharded_train(torch, ops, train_step, nproc: int, tag: str):
             f"{tag} world {res['world']} mesh {res['mesh']}")
     require(rel <= SHARDED_LOSS_REL,
             f"{tag} step-1 loss {losses[0]} against 10b's {ref[0]}")
+    # one rank runs 10b's step on whole rows: the same launches, the
+    # same sums, so every loss equals 10b's bit for bit
+    require(nproc > 1 or losses == ref,
+            f"{tag} losses {losses} differ from 10b's {ref}")
     require(len(losses) == steps and all(math.isfinite(x) for x in losses),
             f"{tag} losses {losses}")
     require(losses[-1] < losses[0], f"{tag} loss did not fall: {losses}")
@@ -3274,6 +3304,175 @@ def sharded_train_cpu(torch):
             f"12b resume {resumed['start_step']} {resumed['losses']}")
     require(resume_rel <= CPU_LOSS_REL, f"12b resume apart: {out}")
     return out
+
+
+# 12d: the sequence-split step, (2, 2) on 4 gloo ranks of the host's CPU
+ROWS_MESH = (2, 2)
+ROWS_FAMILIES = (("mamba2-780m", 7), ("recurrentgemma-2b", 9), (MOE_ARCH, 11))
+ROWS_OPT = dict(lr=LAUNCH_LR, warmup_steps=1, total_steps=10)
+ROWS_STEPS = 3
+ROWS_GRAD_TOL = 1e-4        # gradients: share of each leaf's max |g|
+
+
+def _rows_inputs(torch):
+    """12d's weights and batches, drawn the same in every process from
+    fixed seeds: the reduced opt-1.3b and 3 batches of 8 x 16 tokens, and
+    each of ``ROWS_FAMILIES`` reduced with one batch of 4 x 32."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.transformer import init_params
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(41)
+
+    def batch(cfg, B, S):
+        toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g)
+        return {"tokens": toks[:, :-1].int(), "labels": toks[:, 1:].int()}
+
+    def draw(arch, seed, n, B, S):
+        cfg = get_arch(arch).reduced()
+        params = init_params(cfg, torch.Generator().manual_seed(seed),
+                             torch.float32, cpu)
+        return cfg, params, [batch(cfg, B, S) for _ in range(n)]
+    jobs = {TRAIN_ARCH: draw(TRAIN_ARCH, 5, ROWS_STEPS, 8, 16)}
+    for arch, seed in ROWS_FAMILIES:
+        jobs[arch] = draw(arch, seed, 1, 4, 32)
+    return jobs
+
+
+def _rows_policy(mesh):
+    from repro_torch.distributed.context import ShardingPolicy
+    return ShardingPolicy(mesh, dp_axes=("data",), seq_axis="model")
+
+
+def rows_worker(out: str) -> int:
+    """One rank of 12d (``chip_smoke.py --rows-worker OUT`` under torchrun,
+    4 ``gloo`` ranks): the launcher's layout on the mesh (2, 2), the batch
+    over 'data', the sequence over 'model', the state FSDP as DTensors.
+    The reduced opt-1.3b takes 3 train steps; each other family one loss
+    and its gradients.  Rank 0 writes every result gathered whole."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import shardings as shd
+    from repro_torch.distributed.context import use_policy
+    from repro_torch.launch.mesh import Mesh, init_distributed
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train as TT
+    info = init_distributed(device_type="cpu")
+    shd.register_strategies()
+    mesh = Mesh(("data", "model"), ROWS_MESH,
+                (torch.device("cpu"),) * info.world)
+
+    def whole(tree):
+        return O.tree_map(lambda x: x.full_tensor().detach().clone(), tree)
+    res = {"torch": torch.__version__, "world": info.world}
+    for arch, (cfg, params, batches) in _rows_inputs(torch).items():
+        t0 = time.perf_counter()
+        pspec = shd.param_specs(cfg, params, mesh, mode="fsdp")
+
+        def place(b, cfg=cfg):
+            return shd.distribute(b, shd.batch_specs(cfg, b, mesh), mesh)
+        with use_policy(_rows_policy(mesh)):
+            if arch == TRAIN_ARCH:
+                st = shd.distribute(
+                    TT.TrainState(params, O.init_opt_state(params)),
+                    TT.TrainState(pspec, O.OptState(shd.P(), pspec, pspec)),
+                    mesh)
+                step = TT.make_train_step(cfg, O.AdamWConfig(**ROWS_OPT),
+                                          remat=False, shard_batch=place)
+                losses = []
+                for b in batches:
+                    st, m = step(st, b)
+                    losses.append(float(m["loss"]))
+                res[arch] = {"losses": losses, "state": whole(st)}
+            else:
+                grad_fn = TT.value_and_grad(TT.make_loss_fn(cfg,
+                                                            remat=False))
+                (loss, _), grads = grad_fn(
+                    shd.distribute(params, pspec, mesh), place(batches[0]))
+                res[arch] = {"loss": float(loss.full_tensor()),
+                             "grads": whole(grads)}
+        res[arch]["wall_s"] = time.perf_counter() - t0
+    if info.rank == 0:
+        torch.save(res, out)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _leaves_apart(got, want) -> dict:
+    """{path: (max |got - want|, max |want|)} over two trees' leaves."""
+    from repro_torch.training.checkpoint import _flatten_with_paths
+    a, b = _flatten_with_paths(got), _flatten_with_paths(want)
+    require(sorted(a) == sorted(b), f"leaves differ: {sorted(a)[:4]} "
+            f"{sorted(b)[:4]}")
+    return {k: (float((a[k].double() - b[k].double()).abs().max()),
+                float(b[k].double().abs().max())) for k in b}
+
+
+def sharded_rows_cpu(torch):
+    """12d: the step on a mesh with 'model' > 1 under the card host's
+    torch, on its CPU: 4 ``gloo`` ranks on (2, 2) (``rows_worker``)
+    against one process.  opt-1.3b's 3 steps: losses within 1e-5
+    relative, the state held as 12b holds it; mamba2 and recurrentgemma:
+    the loss within 1e-5 relative, every gradient leaf within 1e-4 of its
+    max |g|; qwen2-moe the same against one process under a (2, 2) policy
+    (its 4 token groups the reference's contiguous ones)."""
+    from repro_torch.distributed.context import use_policy
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train as TT
+    out_path = ROOT / "build" / "chip_smoke_12d.pt"
+    out_path.parent.mkdir(exist_ok=True)
+    out_path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    print(f"  12d torchrun --standalone --nproc-per-node 4 chip_smoke.py "
+          f"--rows-worker (gloo, mesh {ROWS_MESH}, torch "
+          f"{torch.__version__})")
+    _run_ranks(4, ["--rows-worker", out_path], "12d", OMP_NUM_THREADS="2")
+    got = torch.load(out_path, weights_only=False)
+    ranks_s = time.perf_counter() - t0
+    res = {"torch": got["torch"], "world": got["world"], "mesh": ROWS_MESH,
+           "ranks_wall_s": ranks_s}
+    one_mesh = Mesh(("data", "model"), ROWS_MESH)
+    for arch, (cfg, params, batches) in _rows_inputs(torch).items():
+        g = got[arch]
+        if arch == TRAIN_ARCH:
+            st = TT.TrainState(params, O.init_opt_state(params))
+            step = TT.make_train_step(cfg, O.AdamWConfig(**ROWS_OPT),
+                                      remat=False)
+            losses = []
+            for b in batches:
+                st, m = step(st, b)
+                losses.append(float(m["loss"]))
+            rel = max(abs(x - y) / abs(y) for x, y in zip(g["losses"],
+                                                          losses))
+            held = _hold_states(_leaves_apart(g["state"], st),
+                                ROWS_STEPS, f"12d {arch}")
+            res[arch] = dict(losses_4_ranks=g["losses"],
+                             losses_one_process=losses, loss_max_rel=rel,
+                             state=held, wall_s=g["wall_s"])
+            require(rel <= CPU_LOSS_REL, f"12d {arch} losses {res[arch]}")
+            continue
+        pol = _rows_policy(one_mesh) if arch == MOE_ARCH else None
+        with use_policy(pol):
+            (loss, _), grads = TT.value_and_grad(TT.make_loss_fn(
+                cfg, remat=False))(params, batches[0])
+        rel = abs(g["loss"] - float(loss)) / abs(float(loss))
+        apart = _leaves_apart(g["grads"], grads)
+        shares = {k: 0.0 if e == 0 else e / m for k, (e, m) in apart.items()}
+        worst = max(shares, key=shares.get)
+        res[arch] = dict(loss_4_ranks=g["loss"], loss_one_process=float(loss),
+                         loss_rel=rel, grad_max_share=shares[worst],
+                         grad_worst_leaf=worst, grad_leaves=len(shares),
+                         one_process_policy=ROWS_MESH if pol else None,
+                         wall_s=g["wall_s"])
+        require(rel <= CPU_LOSS_REL, f"12d {arch} loss {res[arch]}")
+        require(shares[worst] <= ROWS_GRAD_TOL,
+                f"12d {arch} gradients apart: {res[arch]}")
+    for arch in (TRAIN_ARCH,) + tuple(a for a, _ in ROWS_FAMILIES):
+        print(f"  12d {arch}: {res[arch]}")
+    print(f"  12d gloo, 4 ranks on {ROWS_MESH} against one process, torch "
+          f"{got['torch']}: {time.perf_counter() - t0:.1f} s")
+    return res
 
 
 def main() -> int:
@@ -3455,6 +3654,7 @@ def main() -> int:
     train_parts["12a"], distributed["12a"] = sharded_train(
         torch, ops, train_step, 1, "12a")
     distributed["12b"] = sharded_train_cpu(torch)
+    distributed["12d"] = sharded_rows_cpu(torch)
     n_cards = torch.cuda.device_count()
     if n_cards >= 2:
         train_parts["12c"], distributed["cross_card"] = sharded_train(
@@ -3541,6 +3741,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--train-worker"]:   # a rank of phase 12
             sys.exit(train_worker(sys.argv[2], sys.argv[4:]))
+        if sys.argv[1:2] == ["--rows-worker"]:    # a rank of phase 12d
+            sys.exit(rows_worker(sys.argv[2]))
         sys.exit(main())
     except Exception:                   # any failed phase: no result line
         traceback.print_exc()

@@ -261,6 +261,32 @@ def row_placements(placements):
     return rows, whole, summed
 
 
+def on_rows(fn, args, batched, given_back):
+    """``fn(*args)`` on each rank's batch rows, through ``local_map``:
+    each input's batch rows kept split over the mesh dims that split them
+    and every other dim made whole on each rank (a sequence split over
+    'model' is all-gathered, under autograd).  ``batched[i]``: whether
+    args[i]'s dim 0 is the batch (else it is made whole on every rank,
+    its gradient summed over the ranks, ``row_placements``);
+    ``given_back[j]``: whether output j comes back laid out like
+    ``args[0]`` (else it keeps the rows' split: a final state).  The
+    first argument must be a DTensor."""
+    from torch.distributed.tensor.experimental import local_map
+    lead = args[0]
+    mesh = lead.device_mesh
+    rows, whole, summed = row_placements(lead.placements)
+    run = local_map(
+        fn, out_placements=tuple(rows for _ in given_back),
+        in_placements=tuple((rows if b else whole) for b in batched),
+        in_grad_placements=tuple((rows if b else summed) for b in batched),
+        device_mesh=mesh, redistribute_inputs=True)
+    outs = run(*args)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    back = tuple(o.redistribute(mesh, lead.placements) if g else o
+                 for o, g in zip(outs, given_back))
+    return back if len(back) > 1 else back[0]
+
+
 def named(mesh: Mesh, spec_tree) -> Any:
     """Where every spec's leaf goes: on a one-device mesh, that device;
     on a mesh of more devices, the leaf's DTensor placements

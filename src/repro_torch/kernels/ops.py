@@ -20,9 +20,9 @@ at the call's shard shapes and makes the output's shape without running
 the kernel or its plain version.  Nothing launches, so nothing is counted.
 
 DTensors (a train step sharded over a process group, ``launch/train.py``)
-take one route, ``_on_rows``: ``local_map`` over the same call, with
-each input's batch rows kept split over the mesh dims that split them
-and every other dim made whole on each rank (a sequence split over
+take one route, ``shardings.on_rows``: ``local_map`` over the same call,
+with each input's batch rows kept split over the mesh dims that split
+them and every other dim made whole on each rank (a sequence split over
 'model' is all-gathered, under autograd).  Each rank then runs the kernel
 (or, for CPU tensors, its plain version) on its own rows with the whole
 sequence, which is the reference's semantics, and the outputs come back
@@ -34,6 +34,7 @@ from __future__ import annotations
 import contextlib
 from typing import Callable, Iterator, Optional
 
+from repro_torch.distributed.shardings import on_rows
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lora_merge as _lm
@@ -76,30 +77,6 @@ def _refuse_dtensors(name: str, *ts) -> None:
                         f"call it on each rank's local tensors")
 
 
-def _on_rows(fn, args, batched, given_back):
-    """``fn(*args)`` on each rank's batch rows (see the module
-    docstring).  ``batched[i]``: whether args[i]'s dim 0 is the batch
-    (else it is made whole on every rank); ``given_back[j]``: whether
-    output j is laid out like ``args[0]`` (else it keeps the rows'
-    split: a final state).  The first argument must be a DTensor."""
-    from torch.distributed.tensor.experimental import local_map
-
-    from repro_torch.distributed.shardings import row_placements
-    lead = args[0]
-    mesh = lead.device_mesh
-    rows, whole, summed = row_placements(lead.placements)
-    run = local_map(
-        fn, out_placements=tuple(rows for _ in given_back),
-        in_placements=tuple((rows if b else whole) for b in batched),
-        in_grad_placements=tuple((rows if b else summed) for b in batched),
-        device_mesh=mesh, redistribute_inputs=True)
-    outs = run(*args)
-    outs = outs if isinstance(outs, tuple) else (outs,)
-    back = tuple(o.redistribute(mesh, lead.placements) if g else o
-                 for o, g in zip(outs, given_back))
-    return back if len(back) > 1 else back[0]
-
-
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, scale: Optional[float] = None):
     """Model-layout flash attention: q (B,S,Hq,d), k/v (B,S,Hkv,d) ->
@@ -115,7 +92,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                causal=causal, window=window, q_offset=q_offset, scale=scale)
         return o.transpose(1, 2)
     if _any_dtensor(q, k, v):
-        return _on_rows(run, (q, k, v), (True, True, True), (True,))
+        return on_rows(run, (q, k, v), (True, True, True), (True,))
     return run(q, k, v)
 
 
@@ -158,11 +135,11 @@ def ssd_scan(x, dt, A, Bm, Cm, initial_state=None):
     fn = _ssd.ssd_scan_plain if _PLAIN[0] else _ssd.ssd_scan
     if _any_dtensor(x, dt, A, Bm, Cm, initial_state):
         if initial_state is None:
-            return _on_rows(lambda *a: fn(*a, None), (x, dt, A, Bm, Cm),
-                            (True, True, False, True, True), (True, False))
-        return _on_rows(fn, (x, dt, A, Bm, Cm, initial_state),
-                        (True, True, False, True, True, True),
-                        (True, False))
+            return on_rows(lambda *a: fn(*a, None), (x, dt, A, Bm, Cm),
+                           (True, True, False, True, True), (True, False))
+        return on_rows(fn, (x, dt, A, Bm, Cm, initial_state),
+                       (True, True, False, True, True, True),
+                       (True, False))
     return fn(x, dt, A, Bm, Cm, initial_state)
 
 
@@ -175,10 +152,10 @@ def rglru_scan(log_a, bx, h0=None):
     fn = _rg.rglru_scan_plain if _PLAIN[0] else _rg.rglru_scan
     if _any_dtensor(log_a, bx, h0):
         if h0 is None:
-            return _on_rows(lambda a, b: fn(a, b, None), (log_a, bx),
-                            (True, True), (True, False))
-        return _on_rows(fn, (log_a, bx, h0), (True, True, True),
-                        (True, False))
+            return on_rows(lambda a, b: fn(a, b, None), (log_a, bx),
+                           (True, True), (True, False))
+        return on_rows(fn, (log_a, bx, h0), (True, True, True),
+                       (True, False))
     return fn(log_a, bx, h0)
 
 

@@ -306,7 +306,6 @@ _COLL_KIND = {"all_gather_into_tensor": "all-gather",
               "shard_dim_alltoall": "all-to-all",
               "broadcast": "collective-permute"}
 _WRAPPERS = {"wait_tensor", "_wrap_tensor_autograd", "_unsafe_view"}
-_VIEWS = {torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default}
 _NEW_FACTORIES = {torch.ops.aten.new_zeros.default,
                   torch.ops.aten.new_empty.default,
                   torch.ops.aten.new_ones.default,
@@ -340,6 +339,29 @@ class Totals:
         self.flops += n
         if dtype == "float32":
             self.f32_flops += n
+
+
+class _Abstract(torch.autograd.Function):
+    """A kernel call under autograd: the forward makes the outputs
+    (``make``), the backward charges the gradient's cost (``charge``) and
+    returns empty gradients shaped as the inputs.  One class for every
+    call: a class made per call sits in a reference cycle with the
+    closures that hold the call's inputs, which then stay live until the
+    cyclic garbage collector runs, so the traced peak would follow the
+    collector's timing."""
+
+    @staticmethod
+    def forward(ctx, make, charge, *xs):
+        ctx.charge = charge
+        ctx.like = [x if isinstance(x, torch.Tensor) else None for x in xs]
+        return make()
+
+    @staticmethod
+    def backward(ctx, *gs):
+        ctx.charge()
+        return (None, None) + tuple(
+            None if x is None or not x.requires_grad else torch.empty_like(x)
+            for x in ctx.like)
 
 
 class _Counter(TorchDispatchMode):
@@ -384,12 +406,6 @@ class _Counter(TorchDispatchMode):
         if any(isinstance(a, DTensor) for a in flat):
             if func in _NEW_FACTORIES and isinstance(args[0], DTensor):
                 return self._new_like(func, args, kwargs)
-            if func in _VIEWS and isinstance(args[0], DTensor):
-                rows = self._merge_rows(args[0], args[1])
-                if rows is None:
-                    rows = self._split_rows(args[0], args[1])
-                if rows is not None:
-                    return rows
             if self._inner:
                 self._inner = False
                 return NotImplemented
@@ -452,73 +468,6 @@ class _Counter(TorchDispatchMode):
         if not view and not inplace:
             for o in outs:
                 self._alloc(o)
-
-    def _merge_rows(self, x, size):
-        """``x.view(size)`` where ``size`` merges x's leading dims into
-        one and only those dims are sharded: each device's rows stay on
-        it (a row-wise op after the merge does not care for their global
-        order), sharded over the same mesh dims.  DTensor would gather
-        every device's rows first.  None when the view is another."""
-        from torch.distributed.tensor import DTensor, Replicate, Shard
-        size = list(size)
-        if -1 in size:
-            i = size.index(-1)
-            rest = math.prod(s for j, s in enumerate(size) if j != i)
-            size[i] = x.numel() // max(rest, 1)
-        shape = tuple(x.shape)
-        k = len(shape) - len(size) + 1
-        if (k < 2 or tuple(size[1:]) != shape[k:]
-                or size[0] != math.prod(shape[:k])):
-            return None
-        if not all(isinstance(p, Replicate) or (isinstance(p, Shard)
-                                                and p.dim < k)
-                   for p in x.placements):
-            return None
-        if not any(isinstance(p, Shard) and p.dim > 0 for p in x.placements):
-            return None     # DTensor's own rule keeps such a view local
-        loc = x._local_tensor
-        local = loc.view((math.prod(loc.shape[:k]),) + tuple(loc.shape[k:]))
-        pl = [Shard(0) if isinstance(p, Shard) else p for p in x.placements]
-        return DTensor.from_local(local, x.device_mesh, pl, run_check=False,
-                                  shape=tuple(size),
-                                  stride=_contiguous_stride(size))
-
-    def _split_rows(self, x, size):
-        """The inverse of ``_merge_rows``: ``x.view(size)`` splitting x's
-        dim 0, sharded over some mesh dims, into leading dims; the mesh
-        dims go to the new dims in order, each where it divides."""
-        from torch.distributed.tensor import DTensor, Replicate, Shard
-        size = [int(s) for s in size]
-        if -1 in size:
-            i = size.index(-1)
-            rest = math.prod(s for j, s in enumerate(size) if j != i)
-            size[i] = x.numel() // max(rest, 1)
-        shape = tuple(x.shape)
-        k = len(size) - len(shape) + 1
-        if (k < 2 or tuple(size[k:]) != shape[1:]
-                or math.prod(size[:k]) != shape[0]):
-            return None
-        sharded = [i for i, p in enumerate(x.placements)
-                   if isinstance(p, Shard)]
-        if (not sharded or any(x.placements[i].dim != 0 for i in sharded)
-                or not all(isinstance(p, (Shard, Replicate))
-                           for p in x.placements)):
-            return None
-        pl, local, d = list(x.placements), list(size), 0
-        for i in sharded:
-            n = x.device_mesh.size(i)
-            while d < k and local[d] % n:
-                d += 1
-            if d == k:
-                return None
-            pl[i] = Shard(d)
-            local[d] //= n
-        loc = x._local_tensor
-        if math.prod(local) != loc.numel():
-            return None
-        return DTensor.from_local(loc.view(local), x.device_mesh, pl,
-                                  run_check=False, shape=tuple(size),
-                                  stride=_contiguous_stride(size))
 
     def _new_like(self, func, args, kwargs):
         """``x.new_zeros(size)`` and its kin on a DTensor: sharded as ``x``
@@ -741,21 +690,8 @@ class _Counter(TorchDispatchMode):
             isinstance(t, torch.Tensor) and t.requires_grad for t in inputs)
         if not needs:
             return make()
-        counter = self
-
-        class Abstract(torch.autograd.Function):
-            @staticmethod
-            def forward(ctx, *xs):
-                ctx.like = [x if isinstance(x, torch.Tensor) else None
-                            for x in xs]
-                return make()
-
-            @staticmethod
-            def backward(ctx, *gs):
-                counter._charge(grad_cost())
-                return tuple(None if x is None or not x.requires_grad
-                             else torch.empty_like(x) for x in ctx.like)
-        return Abstract.apply(*inputs)
+        return _Abstract.apply(make, lambda: self._charge(grad_cost()),
+                               *inputs)
 
     def _flash_attention(self, q, k, v, *, causal, window, q_offset):
         q = self._settle(q)

@@ -139,7 +139,19 @@ def causal_conv1d(w, x, state: Optional[torch.Tensor] = None):
 
     w: (K, C); x: (B, S, C); state: (B, K-1, C) carry of previous inputs.
     Returns (y, new_state) with y: (B, S, C), new_state: (B, K-1, C).
+
+    A DTensor x (a train step sharded over a process group) runs on each
+    rank's batch rows with the sequence whole (``shardings.on_rows``), y
+    given back in x's layout: a split sequence is gathered once here,
+    where DTensor would pick a layout for every pad, slice and product.
     """
+    if type(x).__name__ == "DTensor":
+        from repro_torch.distributed.shardings import on_rows
+        if state is None:
+            return on_rows(lambda x, w: causal_conv1d(w, x), (x, w),
+                           (True, False), (True, False))
+        return on_rows(lambda x, w, s: causal_conv1d(w, x, s), (x, w, state),
+                       (True, False, True), (True, False))
     K = w.shape[0]
     S = x.shape[1]
     if state is None:

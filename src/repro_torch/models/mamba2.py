@@ -18,7 +18,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.context import constrain
+from repro_torch.distributed.context import constrain, project
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_step,
                                        dense_init, rms_norm)
@@ -67,7 +67,7 @@ def ssm_block_fwd(cfg, p, x, *, conv_state=None, ssm_state=None):
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     Bsz, S = x.shape[:2]
     h = rms_norm(p["norm"], x, cfg.norm_eps)
-    zxbcdt = constrain(h @ p["in_proj"], "ffh")
+    zxbcdt = constrain(project(h, p["in_proj"]), "ffh")
     z, _, _, _, dt = _split_in_proj(cfg, zxbcdt)
     conv_out, new_conv_state = causal_conv1d(p["conv_w"],
                                              _conv_in(cfg, zxbcdt),
@@ -83,7 +83,7 @@ def ssm_block_fwd(cfg, p, x, *, conv_state=None, ssm_state=None):
     y = y + p["D_skip"].to(y.dtype)[:, None] * xs
     y = y.reshape(Bsz, S, di)
     y = rms_norm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)
-    return (constrain(x + y @ p["out_proj"], "act"),
+    return (constrain(x + project(y, p["out_proj"]), "act"),
             (new_conv_state, new_ssm_state))
 
 

@@ -31,7 +31,8 @@ from typing import Iterator, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.context import constrain, get_policy
+from repro_torch.distributed.context import (constrain, fold_rows,
+                                             get_policy, unfold_rows)
 from repro_torch.models.layers import dense_init
 
 # the routing decisions of every MoE call while ``record_routing`` is on
@@ -159,7 +160,7 @@ def moe_mlp(cfg, p, x, act, *, dropless: bool = False,
     B, S, D = x.shape
     T = B * S
     G = _token_groups(T)
-    xt = constrain(x.reshape(T, D), "tok")
+    xt = constrain(fold_rows(x, contiguous=True), "tok")
     if G > 1 and getattr(xt, "_local_tensor", xt).shape[0] * G == T:
         y, probs, onehot = _device_groups(cfg, p, xt, act, capacity_factor)
     else:
@@ -172,7 +173,7 @@ def moe_mlp(cfg, p, x, act, *, dropless: bool = False,
         probs = torch.cat([q[1][0] for q in parts])
         onehot = torch.cat([q[1][1] for q in parts])
     y = _shared(p, xt, act, constrain(y, "tok"))
-    return y.reshape(B, S, D), _aux(cfg, probs, onehot)
+    return unfold_rows(y, x, contiguous=True), _aux(cfg, probs, onehot)
 
 
 def _device_groups(cfg, p, xt, act, capacity_factor):

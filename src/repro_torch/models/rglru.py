@@ -21,7 +21,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.context import constrain
+from repro_torch.distributed.context import constrain, project
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (_ACTS, causal_conv1d,
                                        causal_conv1d_step, dense_init)
@@ -53,8 +53,8 @@ def init_rec_block(gen: torch.Generator, cfg, n_layers: int, dtype,
 def _gates(p, x):
     """log(a_t) and the gated input. x: (..., W) conv output (float32);
     the gate products run in float32 from upcast weights."""
-    r = torch.sigmoid(x @ p["w_rec_gate"].float())
-    i = torch.sigmoid(x @ p["w_in_gate"].float())
+    r = torch.sigmoid(project(x, p["w_rec_gate"].float()))
+    i = torch.sigmoid(project(x, p["w_in_gate"].float()))
     log_a = -C_CONST * F.softplus(p["Lambda"]) * r            # (..., W) <= 0
     a2 = torch.exp(2.0 * log_a)
     gated_x = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * x)
@@ -67,13 +67,13 @@ def rec_block_fwd(cfg, p, x, *, conv_state=None, h0=None):
     x: (B, S, D) (already normed by the caller).  The scan continues from
     ``h0`` (B, W) float32 when given.  Returns (y (B, S, D), (conv_state,
     h_last (B, W) float32))."""
-    gate = constrain(_ACTS["gelu"](x @ p["w_gate_branch"]), "ffh")
-    u = constrain(x @ p["w_x_branch"], "ffh")
+    gate = constrain(_ACTS["gelu"](project(x, p["w_gate_branch"])), "ffh")
+    u = constrain(project(x, p["w_x_branch"]), "ffh")
     u, new_conv_state = causal_conv1d(p["conv_w"], u, conv_state)
     log_a, bx = _gates(p, u.float())
     h, h_last = ops.rglru_scan(log_a, bx, h0)
     h = constrain(h, "ffh")
-    y = (h.to(x.dtype) * gate) @ p["w_out"]
+    y = project(h.to(x.dtype) * gate, p["w_out"])
     return y, (new_conv_state, h_last)
 
 

@@ -44,7 +44,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.context import constrain
+from repro_torch.distributed.context import (constrain, fold_rows, project,
+                                             unfold_rows)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2, moe, rglru
 from repro_torch.models.layers import (_ACTS, apply_mrope, apply_rope,
@@ -218,10 +219,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
 def _apply_mlp(cfg, p, x):
     act = _ACTS[cfg.act]
     if cfg.gated_mlp:
-        h = constrain(act(x @ p["w_gate"]) * (x @ p["w_up"]), "ffh")
+        h = constrain(act(project(x, p["w_gate"])) * project(x, p["w_up"]),
+                      "ffh")
     else:
-        h = constrain(act(x @ p["w_up"]), "ffh")
-    return h @ p["w_down"]
+        h = constrain(act(project(x, p["w_up"])), "ffh")
+    return project(h, p["w_down"])
 
 
 def _ffn(cfg, p, x, *, dropless: bool = False):
@@ -237,7 +239,7 @@ def attn_out_ffn(cfg, p, x, o, *, dropless: bool = False):
     """The rest of an attention layer after its attention output o (B, S,
     Hq, hd): the output projection into the residual, the second norm and
     the FFN.  Returns (x, aux)."""
-    x = constrain(x + o.reshape(*x.shape[:2], -1) @ p["wo"], "act")
+    x = constrain(x + project(o.reshape(*x.shape[:2], -1), p["wo"]), "act")
     y, aux = _ffn(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x),
                   dropless=dropless)
     return constrain(x + y, "act"), aux
@@ -247,7 +249,7 @@ def project_q(cfg, p, h):
     """The query projection alone (B, S, Hq, hd), before rope: what the
     Q-only recompute of a layer whose K/V survived needs."""
     B, S, _ = h.shape
-    q = h @ p["wq"]
+    q = project(h, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     q = q.reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
@@ -260,8 +262,8 @@ def _project_qkv(cfg, p, h):
     B, S, _ = h.shape
     hd = cfg.resolved_head_dim
     q = project_q(cfg, p, h)
-    k = h @ p["wk"]
-    v = h @ p["wv"]
+    k = project(h, p["wk"])
+    v = project(h, p["wv"])
     if cfg.qkv_bias:
         k = k + p["bk"]
         v = v + p["bv"]
@@ -417,9 +419,9 @@ def unembed(cfg, params, x) -> torch.Tensor:
     are upcast.  A meta tensor (the dry run's) stands for the card."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if x.device.type != "cpu" and x.dtype != torch.float32:
-        y = _Float32Product.apply(x.reshape(-1, x.shape[-1]), head)
-        return constrain(y.reshape(*x.shape[:-1], y.shape[-1]), "logits")
-    return constrain(x.float() @ head.float(), "logits")
+        y = _Float32Product.apply(fold_rows(x), head)
+        return constrain(unfold_rows(y, x), "logits")
+    return constrain(project(x.float(), head.float()), "logits")
 
 
 def _kind_runs(kinds: List[str]) -> List[Tuple[str, int]]:

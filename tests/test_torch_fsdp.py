@@ -10,15 +10,17 @@ gather), so the oracle is its single-device run, as its tests state the
 claim.  Weights are the reference's under ``stable_init``, converted with
 ``params_from_jax``; batches come from numpy with a seed.
 
-One ``torchrun`` of 4 ranks runs every 4-rank check, then one of 2 ranks
-the checks of 2 (the elastic restore of the 4-rank checkpoint and MoE on
-(2, 1)); the launcher runs under ``torchrun`` beside them.  Tolerances:
+One ``torchrun`` of 4 ranks runs every 4-rank check (MoE on (2, 2)
+among them), then one of 2 ranks the checks of 2 (the elastic restore of
+the 4-rank checkpoint and MoE on (2, 1)); the launcher runs under
+``torchrun`` beside them.  Tolerances:
 
   * (a) logits within 2e-4 of the reference's (its own bound);
   * (b) losses within 1e-5 relative; every parameter, m and v within 1e-4
     of its leaf's max |x| after three steps;
   * (c), (d) losses within 1e-5 relative; every gradient leaf within 1e-4
-    of its max |g| (against the reference where its gradient is finite);
+    of its max |g| (against the reference where its gradient is finite;
+    qwen2-moe on (2, 2) against both under a (2, 2) policy);
   * the elastic restore exact; its next step as (b);
   * the launcher's printed losses equal, its final checkpoint as (b).
 """
@@ -36,8 +38,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import AbstractMesh
 
 from repro.configs.base import get_arch as jget_arch
+from repro.distributed import context as jctx
 from repro.models import transformer as JT
 from repro.training import checkpoint as jck
 from repro.training import optimizer as jopt
@@ -107,6 +111,13 @@ def _reference_steps(jcfg, jparams, batches, accum):
     return metrics, st
 
 
+def _reference_grads(jcfg, jparams, batch):
+    (loss, _), grads = jax.jit(jax.value_and_grad(
+        jtrain.make_loss_fn(jcfg, remat=False), has_aux=True))(
+            jparams, _j(batch))
+    return float(loss), _np(grads)
+
+
 def _port_grads(cfg, params, batch, policy=None):
     with use_policy(policy):
         (loss, _), grads = ttrain.value_and_grad(
@@ -173,16 +184,19 @@ def runs(tmp_path_factory):
         ref[f"opt_accum{accum}"] = _reference_steps(
             jo, jop, obatches[accum], accum)
     for arch, (jc, jp, tp, b) in grads_in.items():
-        pol = None
-        if arch == "qwen2-moe-a2.7b":
-            pol = ShardingPolicy(Mesh(("data", "model"), (2, 1)))
         tcfg = get_arch(arch).reduced()
-        ref[arch] = {"port": _port_grads(tcfg, tp, b, pol)}
-        if pol is None:
-            (jl, _), jg = jax.jit(jax.value_and_grad(
-                jtrain.make_loss_fn(jc, remat=False), has_aux=True))(
-                    jp, _j(b))
-            ref[arch]["reference"] = (float(jl), _np(jg))
+        if arch != "qwen2-moe-a2.7b":
+            ref[arch] = {"port": _port_grads(tcfg, tp, b),
+                         "reference": _reference_grads(jc, jp, b)}
+            continue
+        # MoE routes per token group: both sides under a policy of the
+        # mesh, whose groups are its dp x seq ranks
+        for shape in ((2, 1), (2, 2)):
+            pol = ShardingPolicy(Mesh(("data", "model"), shape))
+            ref[f"{arch} {shape}"] = {"port": _port_grads(tcfg, tp, b, pol)}
+        jpol = jctx.ShardingPolicy(AbstractMesh((2, 2), ("data", "model")))
+        with jctx.use_policy(jpol):
+            ref[f"{arch} (2, 2)"]["reference"] = _reference_grads(jc, jp, b)
     out1 = io.StringIO()
     with contextlib.redirect_stdout(out1):
         tlaunch.main(LAUNCH[2:] + ["--ckpt-dir", str(d / "l1")])
@@ -295,9 +309,27 @@ def test_moe_sharded_matches_one_process_under_a_policy(runs):
     same tokens (``test_torch_train_infra`` ties that run to the
     reference's)."""
     got = _out(runs, "world2")["qwen2-moe-a2.7b"]
-    loss, grads = runs["ref"]["qwen2-moe-a2.7b"]["port"]
+    loss, grads = runs["ref"]["qwen2-moe-a2.7b (2, 1)"]["port"]
     np.testing.assert_allclose(got["loss"], loss, rtol=LOSS_RTOL)
     _tree_close(got["grads"], to_numpy(grads), TOL, "moe")
+
+
+def test_moe_sequence_split_routes_the_reference_groups(runs):
+    """qwen2-moe reduced on (2, 2), the sequence split over 'model': the
+    token-major fold gathers the sequence inside each data shard and
+    splits the rows over 'model', so rank (i, j) routes the reference's
+    contiguous group 2i + j.  Loss and every gradient leaf against the
+    one-process run under a (2, 2) policy (4 contiguous groups) and the
+    reference's under its (2, 2) policy."""
+    got = _out(runs, "world4")["qwen2-moe-a2.7b"]
+    want = runs["ref"]["qwen2-moe-a2.7b (2, 2)"]
+    loss, grads = want["port"]
+    np.testing.assert_allclose(got["loss"], loss, rtol=LOSS_RTOL)
+    _tree_close(got["grads"], to_numpy(grads), TOL, "moe (2, 2)")
+    jloss, jgrads = want["reference"]
+    np.testing.assert_allclose(got["loss"], jloss, rtol=LOSS_RTOL)
+    _tree_close(got["grads"], _finite_part(jgrads, grads), TOL,
+                "moe (2, 2) against the reference")
 
 
 # ---------------------------------------------------------------------------

@@ -105,7 +105,7 @@ def train_steps(job, out):
 def loss_and_grads(job, out, runs):
     """The loss and every gradient leaf, gathered whole, of each (arch,
     mesh shape) in ``runs``: (c) mamba2 and recurrentgemma on (2, 2), (d)
-    qwen2-moe on (2, 1)."""
+    qwen2-moe on (2, 2) and (2, 1)."""
     for arch, shape in runs:
         cfg = get_arch(arch).reduced()
         mesh, _, pol = _mesh(shape)
@@ -278,7 +278,8 @@ def main(argv=None):
                  lambda: kernel_routes(job, out),
                  lambda: train_steps(job, out),
                  lambda: loss_and_grads(job, out, (
-                     ("mamba2-780m", (2, 2)), ("recurrentgemma-2b", (2, 2)))),
+                     ("mamba2-780m", (2, 2)), ("recurrentgemma-2b", (2, 2)),
+                     ("qwen2-moe-a2.7b", (2, 2)))),
                  lambda: elastic_save(job, out, str(d / "ckpt"))]
     else:
         parts = [lambda: loss_and_grads(job, out,
