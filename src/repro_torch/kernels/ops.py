@@ -32,7 +32,7 @@ serve only and refuse a DTensor.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Iterator, Optional
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 from repro_torch.distributed.shardings import on_rows
 from repro_torch.kernels import decode_attention as _dec
@@ -163,19 +163,33 @@ _COUNTED = {"decode_attention": _dec, "flash_attention": _fa,
             "lora_merge": _lm, "ssd_scan": _ssd, "rglru_scan": _rg}
 
 
+# replays of captured CUDA graphs: {a replay's launches, as sorted
+# ((kernel, n), ...): replays}; the wrappers' counters run only while a
+# graph is captured, when nothing launches (the capture takes its counts
+# back out), so ``launch_counts()`` folds replays x launches in when read
+_REPLAYS: Dict[Tuple[Tuple[str, int], ...], int] = {}
+
+
+def count_replay(launches: Tuple[Tuple[str, int], ...]) -> None:
+    """Count one replay of a captured graph that launches ``launches``."""
+    _REPLAYS[launches] = _REPLAYS.get(launches, 0) + 1
+
+
 def reset_launch_counts() -> None:
     for mod in _COUNTED.values():
         mod.launches = 0
+    _REPLAYS.clear()
 
 
 def launch_counts():
-    return {name: mod.launches for name, mod in _COUNTED.items()}
+    counts = {name: mod.launches for name, mod in _COUNTED.items()}
+    for launches, replays in _REPLAYS.items():
+        for name, n in launches:
+            counts[name] += n * replays
+    return counts
 
 
 def add_launch_counts(delta) -> None:
-    """Add ``delta`` ({kernel: n}) to the counts.  A captured CUDA graph
-    counts its kernels' launches once per replay this way: the wrappers'
-    counters run only while the graph is captured, when nothing launches
-    (the capture takes its own counts back out)."""
+    """Add ``delta`` ({kernel: n}) to the counts."""
     for name, n in delta.items():
         _COUNTED[name].launches += n

@@ -51,6 +51,12 @@ mid-load in pipeline strategy, bucketed admissions run the engine's belt
 (``distributed/pipeline.py``) over the partial stage chain; its cache has
 the single prefill's layout and lands through the same ``_scatter``, so
 the captured decode step serves either.
+
+Tracing (``serving/tracing.py``): every admission prefill and decode step
+appends a record to ``tracing.TRACER``, timed by the clock reads the step
+takes anyway; with tracing on, each phase of the step (an adapter switch
+too) is also a span, and a ``torch.profiler`` range while a profiler
+records.
 """
 from __future__ import annotations
 
@@ -71,6 +77,7 @@ from repro_torch.serving.prefix_cache import PrefixCache, PrefixEntry
 from repro_torch.serving.snapshot import (KINDS, KVSnapshot, dtype_name,
                                           export_slot, export_slots,
                                           leaf_tensor)
+from repro_torch.serving.tracing import TRACER, DecodeRec, PrefillRec
 
 BUCKET_MIN = 16
 
@@ -209,9 +216,9 @@ class ContinuousBatcher:
                                        device=self.device)
         self._io_dirty = True
         # the captured decode step (card only) and the kernel launches one
-        # replay makes
+        # replay makes, as ``ops.count_replay`` takes them
         self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self._graph_launches: Dict[str, int] = {}
+        self._graph_launches: Tuple[Tuple[str, int], ...] = ()
         self.n_decode_captures = 0
         self._prefill_shapes: Set[Tuple[int, int]] = set()
         # hot-path counters
@@ -282,7 +289,7 @@ class ContinuousBatcher:
         # switch
         self._sampler = fn
         self._graph = None
-        self._graph_launches = {}
+        self._graph_launches = ()
         self.n_decode_captures = 0
 
     # ------------------------------------------------------------------
@@ -314,7 +321,7 @@ class ContinuousBatcher:
             self._capture()
         else:
             self._graph.replay()
-            ops.add_launch_counts(self._graph_launches)
+            ops.count_replay(self._graph_launches)
 
     def _capture(self) -> None:
         cur = torch.cuda.current_stream(self.device)
@@ -333,14 +340,18 @@ class ContinuousBatcher:
         # the counts for the replays
         delta = {k: n - before[k] for k, n in ops.launch_counts().items()}
         ops.add_launch_counts({k: -n for k, n in delta.items()})
-        self._graph, self._graph_launches = graph, delta
+        self._graph = graph
+        self._graph_launches = tuple(sorted((k, n) for k, n in delta.items()
+                                            if n))
         self.n_decode_captures += 1
 
     def _prefill_write(self, toks, last_idx, slots, backend: str):
         """Prefill padded prompts (P, bucket) through ``backend`` (the
         single prefill or the injected belt) and write the first
         ``len(slots)`` rows into their slots in place (one ``index_copy_``
-        per cache leaf); the remaining rows are padding."""
+        per cache leaf); the remaining rows are padding.  Returns the
+        sampled first tokens and the bytes of the transient cache the
+        prefill built."""
         if backend == "pipeline":
             logits, c1 = self._pipe_prefill(
                 self._params, {"tokens": toks, "last_index": last_idx})
@@ -354,7 +365,8 @@ class ContinuousBatcher:
                               for leaf, rows in c1[kind].items()}
                        for kind in KINDS if kind in c1},
                       slots, c1["pos"][:n])
-        return self._sampler(logits).to(torch.int32)
+        return (self._sampler(logits).to(torch.int32),
+                sum(t.nbytes for _, t in _leaves(c1)))
 
     def _scatter(self, rows: Dict[str, Dict[str, torch.Tensor]], slots,
                  pos) -> None:
@@ -533,27 +545,37 @@ class ContinuousBatcher:
         last_idx = np.zeros((P,), np.int32)
         slots = np.zeros((len(reqs),), np.int32)
         assigned: List[Tuple[int, int, ServeRequest]] = []
+        real = 0
         for i, req in enumerate(reqs):
             t = np.asarray(req.tokens, np.int64)
             if req.generated:
                 t = np.concatenate([t, np.asarray(req.generated, np.int64)])
             L = len(t)
-            self.n_prefill_tokens += L
+            real += L
             toks[i, :L] = t
             last_idx[i] = L - 1
             slot = self.free.pop()
             req.slot = slot
             slots[i] = slot
             assigned.append((i, slot, req))
+        self.n_prefill_tokens += real
         dev = self.device
         backend = self._choose_prefill_backend(P, bucket)
-        first = self._prefill_write(torch.from_numpy(toks).to(dev),
-                                    torch.from_numpy(last_idx).to(dev),
-                                    torch.from_numpy(slots).to(dev), backend)
+        tr = TRACER
+        with tr.span("batcher.prefill", rows=P, bucket=bucket, tokens=real,
+                     requests=len(reqs), backend=backend):
+            t0 = time.perf_counter_ns()
+            first, cache_bytes = self._prefill_write(
+                torch.from_numpy(toks).to(dev),
+                torch.from_numpy(last_idx).to(dev),
+                torch.from_numpy(slots).to(dev), backend)
+            # pbcheck: disable=R2 (designed sync: admission reads first tokens to catch immediate EOS before slot commit)
+            first_host = first.cpu().numpy()
+            t1 = time.perf_counter_ns()
+        tr.prefill.append(PrefillRec(tr.clock, P, bucket, real, len(reqs),
+                                     backend, cache_bytes, (t1 - t0) * 1e-9))
         if backend == "pipeline":
             self.n_prefill_pipeline += len(reqs)
-        # pbcheck: disable=R2 (designed sync: admission reads first tokens to catch immediate EOS before slot commit)
-        first_host = first.cpu().numpy()
         self.n_prefill_calls += 1
         self.n_prefill_reqs += len(reqs)
         for i, slot, req in assigned:
@@ -586,12 +608,34 @@ class ContinuousBatcher:
         """One decode step for all active slots; returns finished requests."""
         if not self.active:
             return []
-        t0 = time.perf_counter()
-        if self._io_dirty:
-            self._load_io()
-        self._decode()
-        # pbcheck: disable=R2 (designed sync: THE one host transfer per decode step; EOS checks need the token ids)
-        nxt_host = self._dev_tokens.cpu().numpy()
+        tr = TRACER
+        live = len(self.active)
+        with tr.span("batcher.decode", live=live):
+            t0 = time.perf_counter_ns()
+            with tr.span("batcher.decode.io"):
+                if self._io_dirty:
+                    self._load_io()
+            t1 = time.perf_counter_ns()
+            with tr.span("batcher.decode.launch"):
+                self._decode()
+            t2 = time.perf_counter_ns()
+            with tr.span("batcher.decode.wait"):
+                # pbcheck: disable=R2 (designed sync: THE one host transfer per decode step; EOS checks need the token ids)
+                nxt_host = self._dev_tokens.cpu().numpy()
+            t3 = time.perf_counter_ns()
+            with tr.span("batcher.decode.book"):
+                finished = self._book(nxt_host)
+            t4 = time.perf_counter_ns()
+        self.decode_time_s += (t4 - t0) * 1e-9
+        tr.decode.append(DecodeRec(tr.clock, live, (t1 - t0) * 1e-9,
+                                   (t2 - t1) * 1e-9, (t3 - t2) * 1e-9,
+                                   (t4 - t3) * 1e-9))
+        return finished
+
+    def _book(self, nxt_host: np.ndarray) -> List[ServeRequest]:
+        """A decode step's bookkeeping on the host: append each live slot's
+        sampled token, retire the finished requests (depositing their
+        prompts' rows in an attached prefix cache); returns them."""
         self.n_decode_steps += 1
         finished = []
         done_slots: List[Tuple[int, ServeRequest]] = []
@@ -610,7 +654,6 @@ class ContinuousBatcher:
             if self.prefix_cache is not None and self._can_bucket:
                 # deposit finished prompts before their slots are reused
                 self._deposit_prefixes(done_slots)
-        self.decode_time_s += time.perf_counter() - t0
         return finished
 
     def _deposit(self, req: ServeRequest, snap: KVSnapshot) -> None:
@@ -938,8 +981,9 @@ class ServingEngine:
     def _switch_adapter(self, name: Optional[str]):
         if name == self.active_adapter:
             return
-        self.batcher.params = self.base_params if name is None \
-            else self.adapter_params[name]
+        with TRACER.span("engine.switch", src=self.active_adapter, dst=name):
+            self.batcher.params = self.base_params if name is None \
+                else self.adapter_params[name]
         self.active_adapter = name
         self.n_adapter_switches += 1
 
@@ -988,10 +1032,12 @@ class ServingEngine:
         engine advances a logical step clock by 1 per decode."""
         if now is not None:
             self.clock = now
-        finished = self._admit_pending()
-        if not self.batcher.active:
-            return finished
-        done = self.batcher.step()
+        with TRACER.step(now):
+            with TRACER.span("engine.admit"):
+                finished = self._admit_pending()
+            if not self.batcher.active:
+                return finished
+            done = self.batcher.step()
         if now is None:
             self.clock += 1.0
         for r in done:
