@@ -45,6 +45,17 @@ Phases (any failure exits non-zero and prints no result line):
    timed at opt-1.3b's shapes and again at recurrentgemma-2b's (decode
    with its split count printed); the SSD and RG-LRU scans at one
    512-token prefill and again at a 64-token one (a short serving prompt).
+   Last, ``check_norm_rope``: the decode step's RMSNorm kernel (with and
+   without the residual add) and RoPE kernel at pipeboost-opt-1.3b's (32
+   slots, d_model 2048, 32 heads of 64), qwen2-moe-a2.7b's (64 slots, 16
+   heads of 128) and recurrentgemma-2b's (d_model 2560, 10 query heads of
+   256 on one KV head) decode shapes in bf16: the residual sum bit for bit,
+   both outputs within one bf16 ulp of the plain version (the elements that
+   differ at all printed), each timed beside its plain version and its
+   bytes bound, the norm also beside ``torch.nn.functional.rms_norm``.
+   Every decode step of phases 4-12 runs them in its attention layers (two
+   norms and one RoPE a layer, the final norm; M-RoPE stays plain), and
+   the launch checks count them.
 4. Model: the same weights and teacher-forced tokens through prefill and 4
    zero-copy decode steps, once through the kernels and once through the
    plain versions, for pipeboost-opt-1.3b at full width (24 layers),
@@ -333,6 +344,8 @@ RGLRU_TOL = 1e-5             # RG-LRU y and h_T: share of max |plain|
 LOGIT_REL_TOL = 2.5e-2       # model logits: share of max |plain logit|
 FLOOR_MULT = 2.0             # recurrent models: multiple of the noise floor
 L2_BYTES = 50 * 2 ** 20
+# the kernels a decode step's attention layers launch besides attention
+FUSED = ("rms_norm", "rope")
 
 
 class SmokeError(RuntimeError):
@@ -717,6 +730,123 @@ def check_lora(torch, ops, dev, results):
                                  bound_by=b_by, library_ms=library_ms)
 
 
+NORM_ROPE_SHAPES = {    # decode rows: (slots, D, Hq, Hkv, hd, theta)
+    "opt": (32, 2048, 32, 32, 64, 1e4),
+    "at_qwen2_moe": (64, 2048, 16, 16, 128, 1e6),
+    "at_recurrentgemma": (4, 2560, 10, 1, 256, 1e4),
+}
+
+
+def check_norm_rope(torch, ops, dev, results):
+    """The decode step's RMSNorm and RoPE kernels against their plain
+    versions at pipeboost-opt-1.3b's, qwen2-moe-a2.7b's and
+    recurrentgemma-2b's decode shapes (bf16): the norm's residual sum bit
+    for bit and its output within one bf16 ulp (the squares summed in
+    another order), RoPE within one bf16 ulp (its elements that differ at
+    all printed: none where the card's cosf and sinf are PyTorch's); each
+    timed beside its plain version and its bound, the norm also beside
+    ``torch.nn.functional.rms_norm`` (a yardstick the port never calls)."""
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.kernels import rope as rp
+    from repro_torch.models import layers
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def ulps(got, want):
+        """(elements that differ, elements beyond one bf16 ulp, the
+        largest difference)."""
+        diff = (got.float() - want.float()).abs()
+        _, e = torch.frexp(want.float().abs())
+        over = diff > torch.ldexp(torch.ones_like(diff), e - 8)
+        return int((diff > 0).sum().item()), int(over.sum().item()), \
+            diff.max().item()
+
+    norm, rope = {}, {}
+    for tag, (B, D, Hq, Hkv, hd, theta) in NORM_ROPE_SHAPES.items():
+        n = n_copies(4 * B * D * 2)
+        xs = [(torch.randn((B, 1, D), generator=g, device=dev) * 3).to(bf)
+              for _ in range(n)]
+        rs = [torch.randn((B, 1, D), generator=g, device=dev).to(bf)
+              for _ in range(n)]
+        w = (torch.randn((D,), generator=g, device=dev) * 0.5 + 1).to(bf)
+        s, h = ops.rms_norm(xs[0], w, 1e-5, residual=rs[0])
+        h0 = ops.rms_norm(xs[0], w, 1e-5)
+        torch.cuda.synchronize()
+        s_ref, h_ref = rn.rms_norm_plain(xs[0], w, 1e-5, residual=rs[0])
+        require(torch.equal(s, s_ref), f"rms_norm {tag}: residual sum "
+                f"differs from the plain version's")
+        n_diff, n_over, err = ulps(h, h_ref)
+        n_diff0, n_over0, err0 = ulps(h0, rn.rms_norm_plain(xs[0], w, 1e-5))
+        print(f"  rms_norm {tag} {B} x {D}: residual sum equal; max|kernel "
+              f"- plain| = {err:.3e} ({n_diff} of {h.numel()} elements "
+              f"differ, {n_over} beyond 1 bf16 ulp); without residual "
+              f"{err0:.3e} ({n_diff0} differ, {n_over0} beyond)")
+        require(n_over == 0 and n_over0 == 0,
+                f"rms_norm {tag}: elements beyond one bf16 ulp")
+        ms, paced_ms = time_ms(torch, "rms_norm kernel", [
+            lambda x=x, r=r: ops.rms_norm(x, w, 1e-5, residual=r)
+            for x, r in zip(xs, rs)], 200)
+        plain_ms, _ = time_ms(torch, "rms_norm plain", [
+            lambda x=x, r=r: rn.rms_norm_plain(x, w, 1e-5, residual=r)
+            for x, r in zip(xs, rs)], 50)
+        ms0, paced0 = time_ms(torch, "rms_norm kernel, no residual", [
+            lambda x=x: ops.rms_norm(x, w, 1e-5) for x in xs], 200)
+        plain0, _ = time_ms(torch, "rms_norm plain, no residual", [
+            lambda x=x: rn.rms_norm_plain(x, w, 1e-5) for x in xs], 50)
+        lib0, _ = time_ms(torch, "F.rms_norm", [
+            lambda x=x: F.rms_norm(x, (D,), w, 1e-5) for x in xs], 200)
+        b_ms, b_by = bound(rn.cost(rows=B, dim=D, residual=True))
+        b0_ms, b0_by = bound(rn.cost(rows=B, dim=D))
+        print(f"  rms_norm {tag} timed: with residual kernel {ms:.4f} ms "
+              f"(host-paced {paced_ms:.4f}), plain {plain_ms:.4f}, bound "
+              f"{b_ms:.6f} ({b_by}); without kernel {ms0:.4f} (host-paced "
+              f"{paced0:.4f}), plain {plain0:.4f}, F.rms_norm {lib0:.4f}, "
+              f"bound {b0_ms:.6f} ({b0_by})")
+        norm[tag] = dict(max_abs_err=max(err, err0), ms=ms,
+                         paced_ms=paced_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None, no_residual=dict(
+                             ms=ms0, paced_ms=paced0, plain_ms=plain0,
+                             library_ms=lib0, bound_ms=b0_ms,
+                             bound_by=b0_by))
+        del xs, rs
+
+        n = n_copies(2 * B * (Hq + Hkv) * hd * 2)
+        qs = [torch.randn((B, 1, Hq, hd), generator=g, device=dev).to(bf)
+              for _ in range(n)]
+        ks = [torch.randn((B, 1, Hkv, hd), generator=g, device=dev).to(bf)
+              for _ in range(n)]
+        pos = torch.randint(0, 2304, (B,), generator=g, device=dev,
+                            dtype=torch.int32)
+        inv = layers.kept_rope_freqs(hd, theta, dev)
+        qo, ko = ops.rope_qk(qs[0], ks[0], pos, inv)
+        torch.cuda.synchronize()
+        rq, rk = rp.rope_qk_plain(qs[0], ks[0], pos, inv)
+        dq, oq, eq = ulps(qo, rq)
+        dk, ok, ek = ulps(ko, rk)
+        print(f"  rope {tag} {B} x ({Hq} + {Hkv}) x {hd}: max|kernel - "
+              f"plain| = {max(eq, ek):.3e}; elements that differ: q {dq}, "
+              f"k {dk} ({oq + ok} beyond 1 bf16 ulp)")
+        require(oq + ok == 0, f"rope {tag}: elements beyond one bf16 ulp")
+        ms, paced_ms = time_ms(torch, "rope kernel", [
+            lambda q=q, k=k: ops.rope_qk(q, k, pos, inv)
+            for q, k in zip(qs, ks)], 200)
+        plain_ms, _ = time_ms(torch, "rope plain", [
+            lambda q=q, k=k: rp.rope_qk_plain(q, k, pos, inv)
+            for q, k in zip(qs, ks)], 15)
+        b_ms, b_by = bound(rp.cost(batch=B, heads=Hq, kv_heads=Hkv,
+                                   head_dim=hd))
+        print(f"  rope {tag} timed: kernel {ms:.4f} ms (host-paced "
+              f"{paced_ms:.4f}), plain {plain_ms:.4f}, bound {b_ms:.6f} "
+              f"({b_by}); no single PyTorch call")
+        rope[tag] = dict(max_abs_err=max(eq, ek), unequal=dq + dk, ms=ms,
+                         paced_ms=paced_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
+        del qs, ks
+    results["rms_norm"] = dict(norm.pop("opt"), **norm)
+    results["rope"] = dict(rope.pop("opt"), **rope)
+
+
 def check_ssd(torch, ops, dev, results):
     from repro_torch.kernels import ssd_scan as ssd
     F = torch.nn.functional
@@ -940,7 +1070,11 @@ def check_model(torch, ops, dev, cfg):
     n_attn = counts_by_kind.get("attn", 0)
     want = {"flash_attention": n_attn, "decode_attention": 4 * n_attn,
             "ssd_scan": counts_by_kind.get("ssm", 0),
-            "rglru_scan": counts_by_kind.get("rec", 0)}
+            "rglru_scan": counts_by_kind.get("rec", 0),
+            # a decode step's attention layers: two norms and one RoPE
+            # each, and its final norm
+            "rms_norm": 4 * (2 * n_attn + 1) if n_attn else 0,
+            "rope": 4 * n_attn}
     require(all(counts[k] == n for k, n in want.items()),
             f"{cfg.name}: launches {counts}, expected {want}")
     require(bool(torch.isfinite(kern).all()), f"{cfg.name}: non-finite")
@@ -2082,7 +2216,8 @@ def moe_kernels_vs_plain(torch, ops, dev):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     want = {"flash_attention": 4, "decode_attention": 4 * N,
-            "lora_merge": 4, "ssd_scan": 0, "rglru_scan": 0}
+            "lora_merge": 4, "ssd_scan": 0, "rglru_scan": 0,
+            "rms_norm": N * (2 * 4 + 1), "rope": 4 * N}
     require(counts == want, f"9b launches {counts}, expected {want}")
     with ops.plain_versions():
         p16, _, rp16 = run(cfg16, params16, forced)
@@ -2349,8 +2484,10 @@ def qwen2_vl(torch, ops, dev):
     batches += [{"embeds": emb(1), "positions": pos(S + i, 1)}
                 for i in range(N)]
     kern, plain, counts = _model_runs(torch, ops, cfg, params, batches)
+    # M-RoPE takes the plain ops; the norms are fused
     want = {"flash_attention": 4, "decode_attention": 4 * N,
-            "lora_merge": 0, "ssd_scan": 0, "rglru_scan": 0}
+            "lora_merge": 0, "ssd_scan": 0, "rglru_scan": 0,
+            "rms_norm": N * (2 * 4 + 1), "rope": 0}
     require(counts == want, f"9e launches {counts}, expected {want}")
     err = (kern - plain).abs().max().item()
     scale = plain.abs().max().item()
@@ -3487,6 +3624,8 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lora_merge as lm
     from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.kernels import rope as rp
     from repro_torch.kernels import ssd_scan as ssd
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3540,6 +3679,7 @@ def main() -> int:
     check_lora(torch, ops, dev, results)
     check_ssd(torch, ops, dev, results)
     check_rglru(torch, ops, dev, results)
+    check_norm_rope(torch, ops, dev, results)
     torch.cuda.empty_cache()
 
     print("== phase 4: model, kernels against plain versions")
@@ -3559,25 +3699,25 @@ def main() -> int:
     serve_counts = {
         "pipeboost-opt-1.3b": end_to_end(
             torch, ops, "pipeboost-opt-1.3b", 2,
-            ("decode_attention", "flash_attention", "lora_merge")),
+            ("decode_attention", "flash_attention", "lora_merge") + FUSED),
         "mamba2-780m": end_to_end(torch, ops, "mamba2-780m", 0,
                                   ("ssd_scan",)),
         "recurrentgemma-2b": end_to_end(
             torch, ops, "recurrentgemma-2b", 0,
-            ("decode_attention", "flash_attention", "rglru_scan")),
+            ("decode_attention", "flash_attention", "rglru_scan") + FUSED),
     }
 
     print("== phase 6: recovery")
     recovered = {
         "pipeboost-opt-1.3b": recovery(
             torch, ops, dev, "pipeboost-opt-1.3b", 2,
-            ("decode_attention", "flash_attention", "lora_merge"),
+            ("decode_attention", "flash_attention", "lora_merge") + FUSED,
             ("flash_attention",)),
         "mamba2-780m": recovery(torch, ops, dev, "mamba2-780m", 0,
                                 ("ssd_scan",), ("ssd_scan",)),
         "recurrentgemma-2b": recovery(
             torch, ops, dev, "recurrentgemma-2b", 0,
-            ("decode_attention", "flash_attention", "rglru_scan"),
+            ("decode_attention", "flash_attention", "rglru_scan") + FUSED,
             ("flash_attention", "rglru_scan")),
     }
     print("== phase 7: the cluster")
@@ -3608,7 +3748,7 @@ def main() -> int:
     family_parts = {
         "9a_moe_serve": end_to_end(
             torch, ops, MOE_ARCH, 2,
-            ("decode_attention", "flash_attention", "lora_merge"),
+            ("decode_attention", "flash_attention", "lora_merge") + FUSED,
             after=lambda res: moe_step.update(moe_replayed_step(torch,
                                                                 res))),
     }
@@ -3668,7 +3808,7 @@ def main() -> int:
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     kernels = []
-    for mod in (dec, fa, lm, ssd, rg):
+    for mod in (dec, fa, lm, ssd, rg, rn, rp):
         name = mod.__name__.rsplit(".", 1)[1]
         r = results[name]
         # launches: every serve run of phase 5 whose path runs the kernel
@@ -3703,7 +3843,7 @@ def main() -> int:
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"]}
         for extra in ("at_recurrentgemma", "at_s64", "at_qwen2_moe",
-                      "at_hubert"):
+                      "at_hubert", "no_residual", "unequal"):
             if extra in r:
                 entry[extra] = r[extra]
         # launches of phase 10's and 12's train runs (10b the train step,

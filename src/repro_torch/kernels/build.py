@@ -65,6 +65,13 @@ _SIGNATURES = {
     "pb_rglru_scan": [_I, _P, _P, _P, _P, _P, _STRIDES, _I, _I, _I, _P],
     # device, B, S, W, out: clusters the card holds at once
     "pb_rglru_max_active_clusters": [_I, _I, _I, _I, ctypes.POINTER(_I)],
+    # dtype, device, x, residual (or null), w, h, s (or null), rows, D,
+    # eps, stream
+    "pb_rms_norm": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    # dtype, device, q, k, positions, inv_freq, q out, k out, strides, B,
+    # Hq, Hkv, hd, stream
+    "pb_rope_qk": [_I, _I, _P, _P, _P, _P, _P, _P, _STRIDES, _I, _I, _I, _I,
+                   _P],
 }
 
 _lock = threading.Lock()

@@ -26,8 +26,11 @@ them and every other dim made whole on each rank (a sequence split over
 'model' is all-gathered, under autograd).  Each rank then runs the kernel
 (or, for CPU tensors, its plain version) on its own rows with the whole
 sequence, which is the reference's semantics, and the outputs come back
-in the input's own placements.  ``decode_attention`` and ``lora_merge``
-serve only and refuse a DTensor.
+in the input's own placements.  ``decode_attention``, ``lora_merge``,
+``rms_norm`` and ``rope_qk`` serve only and refuse a DTensor.
+
+``rms_norm`` and ``rope_qk`` take the decode step's rows as they are:
+(B, 1, D) activations and (B, 1, H, d) heads.
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lora_merge as _lm
 from repro_torch.kernels import rglru_scan as _rg
+from repro_torch.kernels import rms_norm as _rn
+from repro_torch.kernels import rope as _rope
 from repro_torch.kernels import ssd_scan as _ssd
 
 _PLAIN = [False]
@@ -159,8 +164,32 @@ def rglru_scan(log_a, bx, h0=None):
     return fn(log_a, bx, h0)
 
 
+def rms_norm(x, w, eps: float, residual=None):
+    """RMSNorm over the last dim: x (..., D), w (D,) -> h; with
+    ``residual`` (like x), the rounded sum s = residual + x first, ->
+    (s, h)."""
+    if _TRACER[0] is not None:
+        return _TRACER[0]("rms_norm", (x, w), dict(eps=eps,
+                                                   residual=residual))
+    _refuse_dtensors("rms_norm", x, w, residual)
+    fn = _rn.rms_norm_plain if _PLAIN[0] else _rn.rms_norm
+    return fn(x, w, eps, residual)
+
+
+def rope_qk(q, k, positions, inv_freq):
+    """Split-half RoPE of one decode step's q (B,1,Hq,d) and k (B,1,Hkv,d)
+    at positions (B,) int32 with inverse frequencies inv_freq (d/2,)
+    float32 -> (q, k)."""
+    if _TRACER[0] is not None:
+        return _TRACER[0]("rope_qk", (q, k, positions, inv_freq), {})
+    _refuse_dtensors("rope_qk", q, k, positions, inv_freq)
+    fn = _rope.rope_qk_plain if _PLAIN[0] else _rope.rope_qk
+    return fn(q, k, positions, inv_freq)
+
+
 _COUNTED = {"decode_attention": _dec, "flash_attention": _fa,
-            "lora_merge": _lm, "ssd_scan": _ssd, "rglru_scan": _rg}
+            "lora_merge": _lm, "ssd_scan": _ssd, "rglru_scan": _rg,
+            "rms_norm": _rn, "rope": _rope}
 
 
 # replays of captured CUDA graphs: {a replay's launches, as sorted

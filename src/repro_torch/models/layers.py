@@ -10,7 +10,7 @@ the tanh approximation (``jax.nn.gelu``'s default).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,12 +67,34 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
+# (head_dim, theta, device) -> rope_freqs: made once and kept (immutable)
+_ROPE_FREQS: Dict[Tuple[int, float, str], torch.Tensor] = {}
+
+
+def kept_rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    """``rope_freqs(head_dim, theta, device)``, made on the first call for
+    these arguments and the same tensor on every later one: a decode step
+    captured as a CUDA graph reads the tensor that its eager warm-up made,
+    and rebuilds nothing."""
+    key = (int(head_dim), float(theta), str(torch.device(device)))
+    inv = _ROPE_FREQS.get(key)
+    if inv is None:
+        inv = _ROPE_FREQS[key] = rope_freqs(head_dim, theta, device)
+    return inv
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Split-half RoPE. x: (..., S, H, hd); positions broadcastable to
     (..., S)."""
-    hd = x.shape[-1]
-    inv = rope_freqs(hd, theta, x.device)
+    return rope_rotate(x, positions, rope_freqs(x.shape[-1], theta,
+                                                x.device))
+
+
+def rope_rotate(x: torch.Tensor, positions: torch.Tensor,
+                inv: torch.Tensor) -> torch.Tensor:
+    """``apply_rope`` with the inverse frequencies inv (hd/2,) float32
+    given (``rope_freqs``)."""
     ang = positions[..., None].float() * inv          # (..., S, hd/2)
     cos = torch.cos(ang)[..., None, :]                # (..., S, 1, hd/2)
     sin = torch.sin(ang)[..., None, :]

@@ -22,11 +22,17 @@ Entry points:
 ``decode_step`` is zero-copy: each attention layer only reads its cache
 slice and the current token's K/V row joins the softmax in the decode
 kernel; after the layer loop one in-place write puts every layer's row at
-``pos % C``.  SSM and recurrent layers write their new conv window and
-state into their cache slices in place, and a ``(B,)`` int32 ``pos`` is
-advanced in place.  The cache passed in is updated in place — the analogue
-of the reference's donated cache — and returned, so a CUDA graph captured
-over the step goes on reading and writing the same storage.
+``pos % C``.  Its attention layers run their RMSNorms (the second with the
+residual add before it) and their split-half RoPE of q and k as the fused
+ops ``ops.rms_norm`` and ``ops.rope_qk``, as does its final norm: on the
+card one kernel each where the plain composition launched nine to
+seventeen, the same arithmetic on the CPU.  Prefill, training and the SSM
+and recurrent layers keep the plain composition.  SSM and recurrent
+layers write their new conv window and state into their cache slices in
+place, and a ``(B,)`` int32 ``pos`` is advanced in place.  The cache
+passed in is updated in place — the analogue of the reference's donated
+cache — and returned, so a CUDA graph captured over the step goes on
+reading and writing the same storage.
 
 MoE layers (``moe``) are attention layers whose FFN is ``moe.moe_mlp``:
 the capacity path in full-sequence forwards, the dropless path in decode;
@@ -46,11 +52,12 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.context import (constrain, fold_rows, project,
                                              unfold_rows)
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2, moe, rglru
 from repro_torch.models.layers import (_ACTS, apply_mrope, apply_rope,
-                                       dense_init, embed_init, layer_norm,
-                                       rms_norm)
+                                       dense_init, embed_init,
+                                       kept_rope_freqs, layer_norm, rms_norm)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -323,29 +330,55 @@ def _place_kv(dst, kv, cap: int, *, clear: bool = False) -> None:
         dst.copy_(torch.roll(kv[:, S - cap:], shift, dims=1))
 
 
-def attn_layer_step(cfg, p, x, positions, k_cache, v_cache, cache_len):
+def attn_layer_step(cfg, p, x, positions, k_cache, v_cache, valid_old,
+                    slot_mask=None, *, fused: bool = False, inv_freq=None):
     """Zero-copy single-token step. x: (B, 1, D); caches (B, C, Hkv, hd),
-    only read; positions: (B, 1), or (B, 1, 3) for M-RoPE; cache_len: (B,)
-    per-slot valid lengths.  Returns (x, k_row, v_row): the caller writes
-    the (B, Hkv, hd) rows once, after the layer loop.  A ring-buffered
-    (windowed) cache masks the slot the new row will overwrite: once the
-    ring is full it holds position pos - C, one step outside the window.
-    An MoE layer's FFN takes the dropless path."""
-    h = _apply_norm(cfg, p["ln1"], x)
+    only read; positions: (B, 1), or (B, 1, 3) for M-RoPE; valid_old: (B,)
+    int32 cache rows each slot attends (its length, at most C);
+    slot_mask: (B, C) bool, a ring-buffered (windowed) cache's valid slots
+    (``_decode_cache_view`` makes both once a step).  Returns (x, k_row,
+    v_row): the caller writes the (B, Hkv, hd) rows once, after the layer
+    loop.  An MoE layer's FFN takes the dropless path.
+
+    ``fused``: the norms run as ``ops.rms_norm``, the second with the
+    residual add of the attention output folded in; with ``inv_freq``
+    (hd/2,) float32, q and k are roped by one ``ops.rope_qk`` at
+    ``positions`` given as (B,) int32.  The arithmetic is the same."""
+    if fused:
+        h = ops.rms_norm(x, p["ln1"], cfg.norm_eps)
+    else:
+        h = _apply_norm(cfg, p["ln1"], x)
     q, k, v = _project_qkv(cfg, p, h)
-    q = rope(cfg, q, positions)
-    k = rope(cfg, k, positions)
-    C = k_cache.shape[1]
-    valid_old = torch.clamp(cache_len, max=C)
-    slot_mask = None
-    if cfg.attn_window > 0:
-        j = torch.arange(C, device=x.device)[None, :]
-        p_len = cache_len[:, None]
-        slot_mask = (j < p_len) & ((p_len < C) | (j != p_len % C))
+    if inv_freq is not None:
+        q, k = ops.rope_qk(q, k, positions, inv_freq)
+    else:
+        q = rope(cfg, q, positions)
+        k = rope(cfg, k, positions)
     o = attn_lib.decode_attention_merged(q, k_cache, v_cache, valid_old,
                                          k, v, kv_slot_mask=slot_mask)
-    x, _ = attn_out_ffn(cfg, p, x, o, dropless=True)
-    return x, k[:, 0], v[:, 0]
+    if not fused:
+        x, _ = attn_out_ffn(cfg, p, x, o, dropless=True)
+        return x, k[:, 0], v[:, 0]
+    x, h2 = ops.rms_norm(project(o.reshape(*x.shape[:2], -1), p["wo"]),
+                         p["ln2"], cfg.norm_eps, residual=x)
+    y, _ = _ffn(cfg, p["mlp"], h2, dropless=True)
+    return x + y, k[:, 0], v[:, 0]
+
+
+def _decode_cache_view(cfg, cache_len, C: int):
+    """(valid_old, slot_mask) of a decode step over attention caches of
+    capacity C at per-slot lengths ``cache_len`` (B,) int32: the cache rows
+    each slot attends, at most C, and for a ring-buffered (windowed) cache
+    the (B, C) bool mask of valid slots, which leaves out the slot the new
+    row will overwrite (once the ring is full it holds position pos - C,
+    one step outside the window); None without a window.  Every attention
+    layer of one cache stack has the same C, so a step makes them once."""
+    valid_old = torch.clamp(cache_len, max=C)
+    if cfg.attn_window <= 0:
+        return valid_old, None
+    j = torch.arange(C, device=cache_len.device)[None, :]
+    p_len = cache_len[:, None]
+    return valid_old, (j < p_len) & ((p_len < C) | (j != p_len % C))
 
 
 def rec_layer_fwd(cfg, p, x, *, conv_state=None, h0=None):
@@ -576,13 +609,28 @@ def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
         pos = pos.expand(B)
     pos = pos.to(torch.int32).contiguous()
     positions = batch["positions"] if "positions" in batch else pos[:, None]
+    # the attention layers' norms and RoPE as the fused ops: RMSNorm (not
+    # the audio family's LayerNorm), on one device (a DTensor, the dry
+    # run's, takes the plain ops); RoPE when split-half (not M-RoPE)
+    fused = (cfg.family != "audio" and "attn" in cache
+             and type(x).__name__ != "DTensor")
+    inv_freq = None
+    if "attn" in cache:
+        valid_old, slot_mask = _decode_cache_view(
+            cfg, pos, cache["attn"]["k"].shape[2])
+        if fused and not cfg.mrope:
+            inv_freq = kept_rope_freqs(cfg.resolved_head_dim,
+                                       cfg.rope_theta, x.device)
+            positions = positions.reshape(B).to(torch.int32).contiguous()
     k_rows, v_rows = [], []
     for kind, i, a in _layers(cfg):
         p = layer_params(params["blocks"][kind], i)
         if a >= 0:
             x, kn, vn = attn_layer_step(cfg, p, x, positions,
                                         cache["attn"]["k"][a],
-                                        cache["attn"]["v"][a], pos)
+                                        cache["attn"]["v"][a], valid_old,
+                                        slot_mask, fused=fused,
+                                        inv_freq=inv_freq)
             k_rows.append(kn)
             v_rows.append(vn)
         elif kind == "ssm":
@@ -604,7 +652,10 @@ def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
         bidx = torch.arange(B, device=x.device)
         kc[:, bidx, slot] = torch.stack(k_rows)
         vc[:, bidx, slot] = torch.stack(v_rows)
-    x = _apply_norm(cfg, params["final_norm"], x)
+    if fused:
+        x = ops.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    else:
+        x = _apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params, x)[:, 0, :]
     if cache["pos"] is pos:
         pos.add_(1)

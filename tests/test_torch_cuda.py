@@ -17,7 +17,12 @@ is held within 2e-5 of max|plain y|; its bf16 y element by element within
 max|plain state|.  The RG-LRU scan runs in float32 on both sides and
 differs by expf rounding and the kernel's carries across segments and
 cluster ranks: y and h_T within 1e-5 of max|plain y| (and of max|plain
-h_T|).
+h_T|).  The decode step's RoPE kernel runs the plain version's
+arithmetic, each operation rounded alone, with the same ``cosf`` and
+``sinf``: equal bit for bit.  Its RMSNorm kernel sums the squares in
+another order: within one ulp of the output dtype in bf16, and within
+2^-20 of |plain| (eight float32 ulps; the sum of D = 2048-2560 squares in
+another order) in float32; its residual sum bit for bit.
 """
 import pytest
 import torch
@@ -29,7 +34,10 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lora_merge as lm
 from repro_torch.kernels import ops
 from repro_torch.kernels import rglru_scan as rg
+from repro_torch.kernels import rms_norm as rn
+from repro_torch.kernels import rope as rp
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.models import layers
 from repro_torch.models import transformer as T
 
 pytestmark = pytest.mark.cuda
@@ -239,6 +247,113 @@ def test_lora_kernel_matches_plain(card, dtype, L, Din, Dout, r):
     else:
         _, e = torch.frexp(ref.float().abs())
         assert bool((diff <= torch.ldexp(torch.ones_like(diff), e - 8)).all())
+
+
+# the decode step's shapes: pipeboost-opt-1.3b (32 slots, 32 heads of 64),
+# qwen2-moe-a2.7b (64 slots, 16 heads of 128), recurrentgemma-2b (10 query
+# heads of 256 on one KV head, d_model 2560)
+NORM_ROPE_SHAPES = [(32, 2048, 32, 32, 64, 1e4), (64, 2048, 16, 16, 128, 1e6),
+                    (4, 2560, 10, 1, 256, 1e4)]
+
+
+def _within_one_ulp(got, want):
+    """|got - want| at most one ulp of want's dtype, element by element."""
+    diff = (got.float() - want.float()).abs()
+    _, e = torch.frexp(want.float().abs())
+    bits = 8 if want.dtype == torch.bfloat16 else 24
+    return bool((diff <= torch.ldexp(torch.ones_like(diff), e - bits)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,D,Hq,Hkv,hd,theta", NORM_ROPE_SHAPES)
+def test_rms_norm_kernel_matches_plain(card, dtype, B, D, Hq, Hkv, hd,
+                                       theta):
+    g = _gen(card, 6)
+    x = _rand((B, 1, D), dtype, card, g, 3.0)
+    res = _rand((B, 1, D), dtype, card, g)
+    w = _rand((D,), dtype, card, g, 0.5) + 1
+    n0 = rn.launches
+    h = ops.rms_norm(x, w, 1e-6)
+    s, h2 = ops.rms_norm(x, w, 1e-6, residual=res)
+    torch.cuda.synchronize()
+    assert rn.launches == n0 + 2
+    with ops.plain_versions():
+        h_ref = ops.rms_norm(x, w, 1e-6)
+        s_ref, h2_ref = ops.rms_norm(x, w, 1e-6, residual=res)
+    assert torch.equal(s, s_ref)
+    for got, want in ((h, h_ref), (h2, h2_ref)):
+        assert got.dtype == dtype and got.shape == want.shape
+        if dtype == torch.bfloat16:
+            assert _within_one_ulp(got, want)
+        else:
+            assert ((got - want).abs() <= 2.0 ** -20 * want.abs()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,D,Hq,Hkv,hd,theta", NORM_ROPE_SHAPES)
+def test_rope_kernel_matches_plain(card, dtype, B, D, Hq, Hkv, hd, theta):
+    g = _gen(card, 7)
+    q = _rand((B, 1, Hq, hd), dtype, card, g)
+    k = _rand((B, 1, Hkv, hd), dtype, card, g)
+    pos = torch.randint(0, 2304, (B,), generator=g, device=card,
+                        dtype=torch.int32)
+    pos[0] = 0
+    inv = layers.kept_rope_freqs(hd, theta, card)
+    n0 = rp.launches
+    qo, ko = ops.rope_qk(q, k, pos, inv)
+    torch.cuda.synchronize()
+    assert rp.launches == n0 + 1
+    assert torch.equal(qo, layers.apply_rope(q, pos[:, None], theta))
+    assert torch.equal(ko, layers.apply_rope(k, pos[:, None], theta))
+
+
+def test_rope_kernel_reads_strided_heads(card):
+    """q and k as views of one (B, 1, Hq + Hkv, hd) tensor."""
+    g = _gen(card, 8)
+    qk = _rand((8, 1, 40, 128), torch.bfloat16, card, g)
+    q, k = qk[:, :, :32], qk[:, :, 32:]
+    pos = torch.arange(8, device=card, dtype=torch.int32) * 300
+    inv = layers.kept_rope_freqs(128, 1e6, card)
+    qo, ko = ops.rope_qk(q, k, pos, inv)
+    rq, rk = rp.rope_qk_plain(q, k, pos, inv)
+    assert torch.equal(qo, rq) and torch.equal(ko, rk)
+    assert qo.is_contiguous() and ko.is_contiguous()
+
+
+def test_norm_and_rope_wrappers_refuse_on_the_card(card):
+    x = torch.zeros((4, 1, 60), device=card, dtype=torch.bfloat16)
+    n0, r0 = rn.launches, rp.launches
+    with pytest.raises(ValueError):
+        rn.rms_norm(x, torch.ones((60,), device=card, dtype=x.dtype), 1e-6)
+    with pytest.raises(ValueError):               # w on the host
+        rn.rms_norm(x[..., :32], torch.ones((32,), dtype=x.dtype), 1e-6)
+    q = torch.zeros((4, 1, 8, 64), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):               # int64 positions
+        rp.rope_qk(q, q, torch.zeros((4,), device=card, dtype=torch.long),
+                   layers.kept_rope_freqs(64, 1e4, card))
+    assert (rn.launches, rp.launches) == (n0, r0)
+
+
+def test_replay_counts_the_fused_launches(card):
+    """One replay of a captured ContinuousBatcher step at pipeboost-opt-
+    1.3b's block (reduced width) launches 2L+1 ``rms_norm`` and L
+    ``rope``, beside L decode attentions, and nothing else counted."""
+    cfg = get_arch("pipeboost-opt-1.3b").reduced(
+        n_layers=4, d_model=256, n_heads=4, head_dim=64, d_ff=512,
+        dtype="bfloat16")
+    params = T.init_params(cfg, _gen(card, 3), device=card)
+    srv, reqs = _serve(card, cfg, params, _prompts(cfg, n=2))
+    srv.step()                          # admission + eager step + capture
+    ops.reset_launch_counts()
+    srv.step()
+    srv.step()
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert ops.launch_counts() == {
+        "decode_attention": 2 * L, "flash_attention": 0, "lora_merge": 0,
+        "ssd_scan": 0, "rglru_scan": 0, "rms_norm": 2 * (2 * L + 1),
+        "rope": 2 * L}
+    assert srv.batcher.compile_stats()["decode_compiles"] == 1
 
 
 @pytest.mark.parametrize("with_state", [False, True])
@@ -461,19 +576,19 @@ def test_model_kernels_match_plain(card, arch):
                                      n_kv_heads=2, head_dim=64,
                                      dtype="bfloat16")
         want = {"flash_attention": 2, "decode_attention": 8, "ssd_scan": 0,
-                "rglru_scan": 0}
+                "rglru_scan": 0, "rms_norm": 20, "rope": 8}
     elif arch == "mamba2-780m":
         cfg = get_arch(arch).reduced(n_layers=2, d_model=256,
                                      ssm_head_dim=64, ssm_state=128,
                                      dtype="bfloat16")
         want = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 2,
-                "rglru_scan": 0}
+                "rglru_scan": 0, "rms_norm": 0, "rope": 0}
     else:
         cfg = get_arch(arch).reduced(n_layers=3, d_model=256, n_heads=10,
                                      n_kv_heads=1, head_dim=256,
                                      lru_width=256, dtype="bfloat16")
         want = {"flash_attention": 1, "decode_attention": 4, "ssd_scan": 0,
-                "rglru_scan": 2}
+                "rglru_scan": 2, "rms_norm": 12, "rope": 4}
     params = T.init_params(cfg, _gen(card, 3), device=card)
     toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=_gen(card, 4),
                          device=card)
