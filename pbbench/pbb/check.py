@@ -19,13 +19,12 @@ request's slot moves without the other requests' tokens diluting it).
 """
 from __future__ import annotations
 
-import importlib
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from pbb import traffic
+from pbb import manifest, traffic
 
 
 def sample(finished: Sequence, seed: int, per_adapter: int) -> List:
@@ -46,10 +45,6 @@ def sample(finished: Sequence, seed: int, per_adapter: int) -> List:
     return [finished[i] for i in sorted(picked)]
 
 
-def _reference(m: Dict):
-    return importlib.import_module(f"reference.{m['reference']}")
-
-
 def _stats(prefix: str, gaps: List[torch.Tensor]) -> Dict[str, float]:
     """``gaps`` holds one tensor a request."""
     g = torch.cat(gaps) if gaps else torch.zeros(1)
@@ -68,7 +63,7 @@ def judge(m: Dict, params: Dict, loras: Dict, items: Sequence,
     served tokens covered and those outside the vocabulary, and where the
     widest gap lies; with ``control`` the same of the tokens the fp8
     control puts first at the same positions."""
-    ref = _reference(m)
+    ref = manifest.reference(m)
     groups: Dict[Optional[str], List] = {}
     for req, served in items:
         groups.setdefault(req.adapter, []).append((req, served))

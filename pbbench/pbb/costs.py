@@ -4,11 +4,16 @@
 ``cost()`` functions of the program's ``kernels/decode_attention.py`` and
 ``kernels/flash_attention.py`` (with ``visible_pairs``): a later change to
 the program cannot move the count its kernels are held to.
-``decode_step_cost`` counts what one whole decode step of the model needs.
+``decode_step_cost`` counts what one whole decode step of the model needs,
+and ``attn_layers`` how many of its layers attend: the default attention
+stack's, or what the configuration's reference module states
+(``manifest``).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
+
+from pbb import manifest
 
 
 def itemsize(dtype: str) -> int:
@@ -63,15 +68,27 @@ def flash_attention_cost(*, batch: int, q_len: int, kv_len: int, heads: int,
     return 4 * batch * heads * head_dim * pairs, 2 * q + kv, dtype
 
 
+def attn_layers(m: Dict) -> int:
+    """The layers that attend and hold K/V rows: the reference module's
+    ``attn_layers(m)`` where it has one, else every layer."""
+    hook = manifest.layout_hook(m, "attn_layers")
+    return hook(m) if hook else m["n_layers"]
+
+
 def decode_step_cost(m: Dict, n_live: int, cached_rows: int,
                      routed_read: Optional[int] = None) -> Tuple[float, float]:
     """(operations, bytes) one decode step needs at least, for ``n_live``
-    live rows whose caches hold ``cached_rows`` positions in all: every
-    weight read once (an MoE layer's routed experts only ``routed_read``
-    of them, by default ``top_k``: the fewest any routing reads), the live
-    K/V rows read once, each new K/V row written once, the logits over the
-    vocabulary written once; two operations per weight and live row, and
-    the attention's two products per visible key."""
+    live rows whose caches hold ``cached_rows`` positions in all: the
+    reference module's ``decode_step_cost`` where it has one.  For the
+    default attention stack: every weight read once (an MoE layer's routed
+    experts only ``routed_read`` of them, by default ``top_k``: the fewest
+    any routing reads), the live K/V rows read once, each new K/V row
+    written once, the logits over the vocabulary written once; two
+    operations per weight and live row, and the attention's two products
+    per visible key."""
+    hook = manifest.layout_hook(m, "decode_step_cost")
+    if hook:
+        return hook(m, n_live, cached_rows, routed_read)
     it = itemsize(m["dtype"])
     D, L = m["d_model"], m["n_layers"]
     hd = m["head_dim"] or D // m["n_heads"]

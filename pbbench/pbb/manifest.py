@@ -6,6 +6,30 @@ by those names, and a per-layer metric's reader as
 ``metrics/<metric>.py``, else ``metrics/<metric up to its first dot>.py``
 (one reader for ``decode_step_ms.chat`` and ``decode_step_ms.batch``).
 Adding a cell, a configuration or a metric is adding files and entries.
+
+A configuration is data plus its reference module.  The data,
+``configs/<name>.json``, holds the model as it is run: its sizes, its
+serving dtype, its slots and cache, and under ``reference`` the name of
+a module ``reference/<reference>.py``.  That module holds the model's
+equations in plain PyTorch (``reference/__init__.py`` names the functions
+the correctness check calls) and states the facts that follow from the
+model's layer structure, by three hooks:
+
+* ``leaf_specs(m)``: every weight leaf as ``(path, shape, init)`` or
+  ``(path, shape, init, dtype)``, in the order of draws
+  (``weights.make_params`` says what each init means);
+* ``decode_step_cost(m, n_live, cached_rows, routed_read)``: (operations,
+  bytes) one decode step needs at least (``costs.decode_step_cost``'s
+  contract);
+* ``attn_layers(m)``: how many layers attend and hold K/V rows.
+
+A module whose model is the default attention stack (``n_layers`` layers
+of attention, each followed by a dense MLP or a mixture of experts, as
+``reference/decoder.py`` computes it) defines none of them, and the
+harness runs its own code for that stack.  A module whose model is not
+that stack defines all three; one that defines only some is refused.  So
+a model with another layout is added as new files: its configuration,
+its reference module, its traffic and the entries that name them.
 """
 from __future__ import annotations
 
@@ -13,13 +37,15 @@ import importlib.util
 import json
 import re
 from pathlib import Path
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
 
 NAME_RE = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT_RE = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+
+HOOKS = ("leaf_specs", "decode_step_cost", "attn_layers")
 
 
 def load_benchmark(root: Path = ROOT) -> Dict:
@@ -51,6 +77,24 @@ def config(name: str) -> Dict:
 def traffic(name: str) -> Dict:
     """``workloads/<name>.json``: the traffic mix's parameters."""
     return _load_json("workloads", name)
+
+
+def reference(m: Dict):
+    """The configuration's reference module, ``reference/<reference>.py``."""
+    return importlib.import_module(f"reference.{m['reference']}")
+
+
+def layout_hook(m: Dict, name: str) -> Optional[Callable]:
+    """The reference module's hook ``name`` (one of ``HOOKS``), or None
+    where the module is of the default attention stack and defines none."""
+    mod = reference(m)
+    have = [h for h in HOOKS if hasattr(mod, h)]
+    if have and len(have) < len(HOOKS):
+        raise SystemExit(
+            f"reference/{m['reference']}.py defines {have} of the layout "
+            f"hooks {list(HOOKS)}: a layout other than the attention stack "
+            f"states all three")
+    return getattr(mod, name, None)
 
 
 def applies(metric: Dict, cell_name: str) -> bool:

@@ -3,13 +3,15 @@
 reference.
 
 The tree has the leaves the program's serving path reads (its parameter
-layout: per-layer weights stacked on a leading layer axis under
-``blocks[kind]``).  Every random leaf is a view of one flat buffer filled
-by a few large ``normal_`` calls of a generator on the device, in the
-dtype the model is served in, then scaled in place: std 1/sqrt(fan-in)
-for a projection, 0.02 for the embedding and for LoRA's B; norms are
-ones.  The padded vocabulary rows (the program pads it to a multiple of
-256) are zero, so their logit is 0 and never the largest.
+layout: for the default attention stack, per-layer weights stacked on a
+leading layer axis under ``blocks[kind]``; a configuration whose reference
+module defines ``leaf_specs`` brings its own, ``manifest``).  Every random
+leaf is a view of one flat buffer filled by a few large ``normal_`` calls
+of a generator on the device, in the dtype the model is served in, then
+scaled in place: std 1/sqrt(fan-in) for a projection, 0.02 for the
+embedding and for LoRA's B; norms are ones.  The padded vocabulary rows
+(the program pads it to a multiple of 256) are zero, so their logit is 0
+and never the largest.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import math
 from typing import Dict, List, Tuple
 
 import torch
+
+from pbb import manifest
 
 CHUNK = 1 << 30              # elements a normal_ call fills at most
 ALIGN = 64                   # elements: every leaf starts 128-byte aligned
@@ -34,8 +38,17 @@ def layer_kind(m: Dict) -> str:
     return "moe" if m.get("n_experts", 0) else "attn"
 
 
-def leaf_specs(m: Dict) -> List[Tuple[Path, Tuple[int, ...], object]]:
-    """(path, shape, init) of every leaf; init is a std or "ones"."""
+def leaf_specs(m: Dict) -> List[Tuple]:
+    """(path, shape, init[, dtype]) of every leaf: the reference module's
+    ``leaf_specs(m)`` where it has one, else the attention stack's."""
+    hook = manifest.layout_hook(m, "leaf_specs")
+    return hook(m) if hook else attention_stack_specs(m)
+
+
+def attention_stack_specs(m: Dict) -> List[Tuple[Path, Tuple[int, ...],
+                                                 object]]:
+    """(path, shape, init) of every leaf of the default attention stack;
+    init is a std or "ones"."""
     D, L = m["d_model"], m["n_layers"]
     hd = m["head_dim"] or D // m["n_heads"]
     Hq, Hkv, V = m["n_heads"], m["n_kv_heads"], padded_vocab(m)
@@ -95,21 +108,38 @@ def generator(seed: int, device) -> torch.Generator:
         seed & 0xFFFFFFFFFFFFFFFF)
 
 
+def _drawn(init) -> bool:
+    return not callable(init) and not isinstance(init, str)
+
+
 def make_params(m: Dict, gen: torch.Generator, device) -> Dict:
-    """The model's weights, in its serving dtype, on ``device``."""
-    dtype = DTYPES[m["dtype"]]
+    """The model's weights on ``device``, each leaf in its spec's dtype
+    (by default the serving dtype).  An init is a std (the leaf drawn from
+    the flat buffer in the serving dtype, in the order of the specs, and
+    cast where its dtype differs), ``"ones"``, ``"zeros"``, or a function
+    ``init(shape, device)`` that draws nothing (such as an SSM's
+    ``A_log`` as a function of its shape)."""
+    serving = DTYPES[m["dtype"]]
     specs = leaf_specs(m)
-    sizes = [-(-_numel(s) // ALIGN) * ALIGN if isinstance(i, float) else 0
-             for _, s, i in specs]
-    buf = _flat_normal(sum(sizes), dtype, device, gen)
+    sizes = [-(-_numel(s[1]) // ALIGN) * ALIGN if _drawn(s[2]) else 0
+             for s in specs]
+    buf = _flat_normal(sum(sizes), serving, device, gen)
     tree: Dict = {}
     at = 0
     V = m["vocab_size"]
-    for (path, shape, init), size in zip(specs, sizes):
-        if init == "ones":
+    for spec, size in zip(specs, sizes):
+        path, shape, init = spec[:3]
+        dtype = DTYPES[spec[3]] if len(spec) > 3 else serving
+        if callable(init):
+            t = init(shape, device).to(device=device, dtype=dtype)
+        elif init == "ones":
             t = torch.ones(shape, dtype=dtype, device=device)
+        elif init == "zeros":
+            t = torch.zeros(shape, dtype=dtype, device=device)
+        elif isinstance(init, str):
+            raise ValueError(f"leaf {path}: unknown init {init!r}")
         else:
-            t = buf[at:at + _numel(shape)].view(shape).mul_(init)
+            t = buf[at:at + _numel(shape)].view(shape).mul_(init).to(dtype)
             at += size
         if path == ("embed",):
             t[V:].zero_()

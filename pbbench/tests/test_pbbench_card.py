@@ -3,7 +3,8 @@ own size and load.
 
     python -m pytest -q -s pbbench/tests/test_pbbench_card.py   # on the card
 
-On each of three seeds the program's served tokens are within the cell's
+Every cell of ``BENCHMARK.json`` is covered, found by its entry.  On
+each of three seeds the program's served tokens are within the cell's
 limits and the tokens the fp8 control puts first are not; with a fault
 planted under the timed path (``faults.py``: a token altered, half of the
 batch left out) the check's verdict is not correct.  Each case prints its
@@ -15,7 +16,7 @@ import faults
 from pbb import check, manifest, serve
 
 SEEDS = (2 ** 31 + 101, 2 ** 31 + 202, 2 ** 31 + 303)
-CELLS = ["opt-lora-chat", "moe-decode-batch"]
+CELLS = [w["name"] for w in manifest.load_benchmark()["workloads"]]
 
 
 def _cell(name):
