@@ -48,6 +48,11 @@ class ArchConfig:
     moe_d_ff: int = 0              # per-expert hidden dim
     capacity_factor: float = 1.25
     serving_capacity_factor: float = 2.0
+    # capacity_factor 0 (granite-4.0-h): no capacity, every assignment
+    # computed in prefill too; its shared MLP has its own width and is
+    # added with no sigmoid gate
+    shared_d_ff: int = 0           # 0 -> moe_d_ff
+    shared_gate: bool = True
     router_aux_coef: float = 0.01
 
     # --- SSM (mamba2 / SSD) --------------------------------------------------
@@ -56,10 +61,18 @@ class ArchConfig:
     ssm_head_dim: int = 64         # P
     ssm_conv: int = 4
     ssm_chunk: int = 256
+    ssm_conv_bias: bool = False
 
     # --- hybrid (recurrentgemma) --------------------------------------------
     block_pattern: Tuple[str, ...] = ()   # e.g. ("rec", "rec", "attn")
     lru_width: int = 0
+
+    # --- granite-4.0-h: NoPE and the four multipliers (1 / 0: off) --------
+    use_rope: bool = True
+    attention_multiplier: float = 0.0      # score scale; 0 -> head_dim**-0.5
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0       # each sublayer's output, scaled
+    logits_scaling: float = 1.0            # logits divided by it
 
     # --- misc ----------------------------------------------------------------
     act: str = "silu"
@@ -205,6 +218,22 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
 
+# The fields the port's configs have and the JAX package's do not
+# (granite-4.0-h's, served by the port alone); every model both packages
+# list keeps them at their defaults, where they change nothing.
+PORT_ONLY_FIELDS: Tuple[str, ...] = (
+    "shared_d_ff", "shared_gate", "ssm_conv_bias", "use_rope",
+    "attention_multiplier", "embedding_multiplier", "residual_multiplier",
+    "logits_scaling")
+
+
+def shared_fields(cfg: ArchConfig) -> Dict:
+    """``cfg``'s fields less ``PORT_ONLY_FIELDS``: what a config of the JAX
+    package holds."""
+    return {k: v for k, v in cfg.__dict__.items()
+            if k not in PORT_ONLY_FIELDS}
+
+
 # ---------------------------------------------------------------------------
 # Input-shape configs
 # ---------------------------------------------------------------------------
@@ -257,6 +286,9 @@ _MODULE_FOR: Dict[str, str] = {
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "pipeboost-opt-1.3b": "pipeboost_opt_1_3b",
+    # served by the port alone (the JAX package has no such model), so not
+    # in ARCH_IDS, which both packages list alike
+    "granite-4.0-h-small": "granite_4_0_h_small",
 }
 
 

@@ -156,10 +156,20 @@ def mlp(params: Dict, x, act: str = "silu"):
 # Causal depthwise conv1d (mamba2 front conv)
 # ---------------------------------------------------------------------------
 
-def causal_conv1d(w, x, state: Optional[torch.Tensor] = None):
+def residual_scaled(cfg, y):
+    """A sublayer's output as the residual takes it: times
+    ``cfg.residual_multiplier`` (granite-4.0-h's 0.22), with no operation
+    where that is 1."""
+    rm = cfg.residual_multiplier
+    return y if rm == 1.0 else y * rm
+
+
+def causal_conv1d(w, x, state: Optional[torch.Tensor] = None,
+                  b: Optional[torch.Tensor] = None):
     """Depthwise causal conv along time.
 
-    w: (K, C); x: (B, S, C); state: (B, K-1, C) carry of previous inputs.
+    w: (K, C); x: (B, S, C); state: (B, K-1, C) carry of previous inputs;
+    b: (C,) bias, added to the sum, or None.
     Returns (y, new_state) with y: (B, S, C), new_state: (B, K-1, C).
 
     A DTensor x (a train step sharded over a process group) runs on each
@@ -169,6 +179,8 @@ def causal_conv1d(w, x, state: Optional[torch.Tensor] = None):
     """
     if type(x).__name__ == "DTensor":
         from repro_torch.distributed.shardings import on_rows
+        if b is not None:
+            raise NotImplementedError("a conv bias on DTensors")
         if state is None:
             return on_rows(lambda x, w: causal_conv1d(w, x), (x, w),
                            (True, False), (True, False))
@@ -184,11 +196,12 @@ def causal_conv1d(w, x, state: Optional[torch.Tensor] = None):
     for i in range(1, K):
         y = y + xp[:, i:i + S] * w[i]
     new_state = xp[:, S:] if K > 1 else state
-    return y, new_state
+    return (y if b is None else y + b), new_state
 
 
-def causal_conv1d_step(w, x_t, state):
-    """Single decode step. x_t: (B, C); state: (B, K-1, C)."""
+def causal_conv1d_step(w, x_t, state, b: Optional[torch.Tensor] = None):
+    """Single decode step. x_t: (B, C); state: (B, K-1, C); b: (C,) bias
+    or None."""
     window = torch.cat([state, x_t[:, None, :]], dim=1)   # (B, K, C)
     y = torch.einsum("bkc,kc->bc", window, w)
-    return y, window[:, 1:]
+    return (y if b is None else y + b), window[:, 1:]

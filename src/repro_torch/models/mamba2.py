@@ -7,7 +7,11 @@ form), ``ssm_block_fwd`` runs every scan, from an empty or a given state,
 through ``ops.ssd_scan``: the SSD scan kernel on the card, its plain
 version on the CPU.
 
-Decode is the O(1)-per-token recurrent form (``ssm_block_step``).
+Decode is the O(1)-per-token recurrent form (``ssm_block_step``).  The
+block is its pre-norm, the mixer (``mixer_fwd``, ``mixer_step``: in_proj,
+the causal conv with its bias where the model has one, the scan, the gated
+RMSNorm, out_proj) and the residual add, scaled where the model scales
+it (granite-4.0-h).
 Parameters keep the reference's layout and names; the port stacks them on
 a leading layer axis.
 """
@@ -21,7 +25,8 @@ import torch.nn.functional as F
 from repro_torch.distributed.context import constrain, project
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_step,
-                                       dense_init, rms_norm)
+                                       dense_init, residual_scaled, rms_norm)
+from repro_torch.serving.tracing import TRACER
 
 
 def init_ssm_block(gen: torch.Generator, cfg, n_layers: int, dtype,
@@ -42,6 +47,8 @@ def init_ssm_block(gen: torch.Generator, cfg, n_layers: int, dtype,
         "D_skip": torch.ones((L, H), dtype=f32, device=device),
         "gate_norm": torch.ones((L, di), dtype=dtype, device=device),
         "out_proj": dense_init(gen, (L, di, D), dtype, device),
+        **({"conv_b": dense_init(gen, (L, di + 2 * N), dtype, device,
+                                 scale=0.1)} if cfg.ssm_conv_bias else {}),
     }
 
 
@@ -63,15 +70,28 @@ def _conv_in(cfg, zxbcdt):
 
 def ssm_block_fwd(cfg, p, x, *, conv_state=None, ssm_state=None):
     """Full-sequence forward. x: (B, S, D). Returns (y, (conv_state,
-    ssm_state)); the scan continues from ``ssm_state`` when given."""
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    Bsz, S = x.shape[:2]
+    ssm_state)); the scan continues from ``ssm_state`` when given.  The
+    block is the pre-norm, the mixer and the residual add (of the mixer's
+    output scaled by ``cfg.residual_multiplier`` where it is not 1)."""
     h = rms_norm(p["norm"], x, cfg.norm_eps)
+    y, states = mixer_fwd(cfg, p, h, conv_state=conv_state,
+                          ssm_state=ssm_state)
+    return constrain(x + residual_scaled(cfg, y), "act"), states
+
+
+def mixer_fwd(cfg, p, h, *, conv_state=None, ssm_state=None):
+    """The Mamba-2 mixer over a normed sequence h (B, S, D): in_proj, the
+    causal conv (with its bias where the model has one), the SSD scan
+    (``ops.ssd_scan``, inside a ``model.ssm_prefill`` span), the skip, the
+    gated RMSNorm ``norm(y * silu(z)) * w`` and out_proj.  Returns (out (B,
+    S, D), (conv_state, ssm_state))."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    Bsz, S = h.shape[:2]
     zxbcdt = constrain(project(h, p["in_proj"]), "ffh")
     z, _, _, _, dt = _split_in_proj(cfg, zxbcdt)
     conv_out, new_conv_state = causal_conv1d(p["conv_w"],
                                              _conv_in(cfg, zxbcdt),
-                                             conv_state)
+                                             conv_state, p.get("conv_b"))
     conv_out = constrain(F.silu(conv_out), "ffh")
     # views of conv_out: the kernel reads them through their strides
     xs = conv_out[..., :di].reshape(Bsz, S, H, P)
@@ -79,24 +99,32 @@ def ssm_block_fwd(cfg, p, x, *, conv_state=None, ssm_state=None):
     C = conv_out[..., di + N:]
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    y, new_ssm_state = ops.ssd_scan(xs, dt, A, B, C, ssm_state)
+    with TRACER.span("model.ssm_prefill", rows=Bsz, tokens=S):
+        y, new_ssm_state = ops.ssd_scan(xs, dt, A, B, C, ssm_state)
     y = y + p["D_skip"].to(y.dtype)[:, None] * xs
     y = y.reshape(Bsz, S, di)
     y = rms_norm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)
-    return (constrain(x + project(y, p["out_proj"]), "act"),
-            (new_conv_state, new_ssm_state))
+    return project(y, p["out_proj"]), (new_conv_state, new_ssm_state)
 
 
 def ssm_block_step(cfg, p, x_t, conv_state, ssm_state):
     """Single-token decode. x_t: (B, D); states from prefill.  Returns
     (x, (conv_state, ssm_state)) with new state tensors."""
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     h = rms_norm(p["norm"], x_t, cfg.norm_eps)
+    y, states = mixer_step(cfg, p, h, conv_state, ssm_state)
+    return x_t + residual_scaled(cfg, y), states
+
+
+def mixer_step(cfg, p, h, conv_state, ssm_state):
+    """The mixer on one normed token h (B, D), the O(1) recurrent form.
+    Returns (out (B, D), (conv_state, ssm_state)) with new state
+    tensors."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     zxbcdt = h @ p["in_proj"]
     z, _, _, _, dt = _split_in_proj(cfg, zxbcdt)
     conv_out, new_conv_state = causal_conv1d_step(p["conv_w"],
                                                   _conv_in(cfg, zxbcdt),
-                                                  conv_state)
+                                                  conv_state, p.get("conv_b"))
     conv_out = F.silu(conv_out)
     xs = conv_out[..., :di].reshape(-1, H, P)
     B = conv_out[..., di:di + N].float()
@@ -107,8 +135,8 @@ def ssm_block_step(cfg, p, x_t, conv_state, ssm_state):
     # h_new = dA * h + dt * B (outer) x
     dBx = torch.einsum("bh,bn,bhp->bhpn", dt, B, xs.float())
     new_state = ssm_state * dA[..., None, None] + dBx
-    y = torch.einsum("bn,bhpn->bhp", C, new_state).to(x_t.dtype)
+    y = torch.einsum("bn,bhpn->bhp", C, new_state).to(h.dtype)
     y = y + p["D_skip"].to(y.dtype)[:, None] * xs
     y = y.reshape(-1, di)
     y = rms_norm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)
-    return x_t + y @ p["out_proj"], (new_conv_state, new_state)
+    return y @ p["out_proj"], (new_conv_state, new_state)

@@ -21,6 +21,12 @@ group count is the active sharding policy's ``token_groups``
 gets its own capacity and expert queues (GShard per-group semantics).
 With no policy installed, or a count that does not divide T, there is one
 group.  ``serving_capacity_factor`` is unused, as in the reference.
+
+A model with no capacity (``capacity_factor`` 0: granite-4.0-h) takes
+``_moe_sorted`` in full-sequence forwards instead: every assignment
+computed, each expert on its own tokens.  Its shared MLP is one SwiGLU of
+its own width (``shared_d_ff``) added with no sigmoid gate (no ``gate``
+leaf, ``shared_gate`` False).
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ from repro_torch.models.layers import dense_init
 
 # the routing decisions of every MoE call while ``record_routing`` is on
 _RECORD: List[Optional[list]] = [None]
+# experts ``_moe_sorted`` pads and multiplies at once
+SORTED_GROUP = 8
 
 
 @contextlib.contextmanager
@@ -69,11 +77,12 @@ def init_moe_mlp(gen: torch.Generator, cfg, L: int, dtype,
          "w_up": dense((E, D, Fd), E ** -0.5),
          "w_down": dense((E, Fd, D), E ** -0.5)}
     if cfg.n_shared_experts:
-        S = cfg.n_shared_experts
-        p["shared"] = {"w_gate": dense((S, D, Fd), S ** -0.5),
-                       "w_up": dense((S, D, Fd), S ** -0.5),
-                       "w_down": dense((S, Fd, D), S ** -0.5),
-                       "gate": dense((D, 1), 0.02)}
+        S, Fs = cfg.n_shared_experts, cfg.shared_d_ff or Fd
+        p["shared"] = {"w_gate": dense((S, D, Fs), S ** -0.5),
+                       "w_up": dense((S, D, Fs), S ** -0.5),
+                       "w_down": dense((S, Fs, D), S ** -0.5)}
+        if cfg.shared_gate:
+            p["shared"]["gate"] = dense((D, 1), 0.02)
     return p
 
 
@@ -123,12 +132,15 @@ def _all_experts(xt, w_gate, w_up, w_down, act):
 
 
 def _shared(p, xt, act, y):
-    """y + the always-on shared experts, gated by a float32 sigmoid."""
+    """y + the always-on shared experts, gated by a float32 sigmoid where
+    they have a ``gate`` (granite-4.0-h's shared MLP has none)."""
     if "shared" not in p:
         return y
     sp = p["shared"]
     ys = _all_experts(xt, sp["w_gate"], sp["w_up"], sp["w_down"],
                       act).sum(dim=0)
+    if "gate" not in sp:
+        return y + ys
     sg = torch.sigmoid((xt @ sp["gate"]).float())
     return y + ys * sg.to(y.dtype)
 
@@ -154,9 +166,14 @@ def moe_mlp(cfg, p, x, act, *, dropless: bool = False,
     expert's capacity C (sized from the group's tokens) are dropped (their
     routed contribution is zero; the shared experts and the residual still
     serve the token).  The load-balance loss is taken over all tokens.
-    ``dropless=True`` (decode) runs ``_moe_dropless``."""
+    ``dropless=True`` (decode) runs ``_moe_dropless``; a model with no
+    capacity (``capacity_factor`` 0, none passed) runs ``_moe_sorted``,
+    which drops nothing either."""
     if dropless:
         return _moe_dropless(cfg, p, x, act)
+    if (capacity_factor is None and cfg.capacity_factor == 0
+            and type(x).__name__ != "DTensor"):
+        return _moe_sorted(cfg, p, x, act)
     B, S, D = x.shape
     T = B * S
     G = _token_groups(T)
@@ -246,4 +263,51 @@ def _moe_dropless(cfg, p, x, act) -> Tuple[torch.Tensor, torch.Tensor]:
     eout = _all_experts(xt, p["w_gate"], p["w_up"], p["w_down"], act)
     y = torch.einsum("te,etd->td", w.to(x.dtype), eout)
     y = _shared(p, xt, act, y)
+    return y.reshape(B, S, D), _aux(cfg, probs, onehot)
+
+
+def _moe_sorted(cfg, p, x, act) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k MoE of a long sequence, each expert on its own tokens:
+    the (token, choice) pairs sorted by expert (stably, so in token order
+    within one), then, ``SORTED_GROUP`` experts at a time, gathered into
+    (group, C, D) with C the most pairs an expert of the group got (the
+    counts read once), three batched products, each pair's output put back
+    in its place; the k choices combined in the model dtype.  No pair is
+    dropped, and no expert computes a token not routed to it.  The groups
+    bound what the padding to C holds at once, which the routing sets:
+    with every expert at once it was the one part of a prefill's memory
+    that moved from prompt to prompt."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    xt = x.reshape(T, D)
+    probs, top_p, top_e = _route(cfg, p["router"], xt)
+    if _RECORD[0] is not None:
+        _RECORD[0].append((top_e, torch.ones_like(top_e, dtype=torch.bool)))
+    flat = top_e.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=E)
+    # pbcheck: disable=R2 (designed sync: the eager prefill sizes each group of experts' batch by its busiest expert, one read a layer)
+    cnt = counts.tolist()
+    start = [0]
+    for c in cnt:
+        start.append(start[-1] + c)
+    se = flat[order]
+    slot = torch.arange(T * K, device=x.device) - (torch.cumsum(counts, 0)
+                                                  - counts)[se]
+    out = torch.empty((T * K, D), dtype=x.dtype, device=x.device)
+    for e0 in range(0, E, SORTED_GROUP):
+        e1 = min(E, e0 + SORTED_GROUP)
+        a, b = start[e0], start[e1]
+        if a == b:
+            continue
+        ge, gs, go = se[a:b] - e0, slot[a:b], order[a:b]
+        xin = xt.new_zeros((e1 - e0, max(cnt[e0:e1]), D))
+        xin[ge, gs] = xt[go // K]
+        h = act(torch.bmm(xin, p["w_gate"][e0:e1])) * \
+            torch.bmm(xin, p["w_up"][e0:e1])
+        out[go] = torch.bmm(h, p["w_down"][e0:e1])[ge, gs]
+    y = torch.einsum("tk,tkd->td", top_p.to(x.dtype), out.view(T, K, D))
+    y = _shared(p, xt, act, y)
+    onehot = F.one_hot(top_e, E).float()
     return y.reshape(B, S, D), _aux(cfg, probs, onehot)

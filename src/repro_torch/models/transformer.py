@@ -37,7 +37,18 @@ reading and writing the same storage.
 MoE layers (``moe``) are attention layers whose FFN is ``moe.moe_mlp``:
 the capacity path in full-sequence forwards, the dropless path in decode;
 they fill the ``attn`` cache stack with the attention layers, in layer
-order.  The audio family normalises with LayerNorm (``{scale, bias}``
+order.  A model with no capacity (granite-4.0-h's) takes the MoE's sorted
+path in full-sequence forwards, which drops nothing.
+
+granite-4.0-h (a ``hybrid`` of ``ssm`` and ``moe`` layers): each SSM
+layer is the Mamba-2 block (its mixer with a conv bias) followed by a
+second norm and the MoE FFN (``ssm_layer_fwd``, ``ssm_layer_step``); its
+attention layers have no position embedding (``use_rope`` False) and
+score at ``attention_multiplier``; every sublayer's output joins the
+residual times ``residual_multiplier``, the embedding is multiplied by
+``embedding_multiplier`` and the logits divided by ``logits_scaling``.
+Each of these is no operation at its default, so the other models'
+steps launch what they did.  The audio family normalises with LayerNorm (``{scale, bias}``
 leaves), attends non-causally and has no decode step.  M-RoPE models take
 ``(B, S, 3)`` (t, h, w) positions, and every model may take ``embeds``
 (B, S, D) in place of tokens (the stubbed audio and vision frontends).
@@ -57,7 +68,8 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2, moe, rglru
 from repro_torch.models.layers import (_ACTS, apply_mrope, apply_rope,
                                        dense_init, embed_init,
-                                       kept_rope_freqs, layer_norm, rms_norm)
+                                       kept_rope_freqs, layer_norm,
+                                       residual_scaled, rms_norm)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -153,8 +165,19 @@ def _init_rec_layers(gen: torch.Generator, cfg: ArchConfig, L: int, dtype,
             "mlp": _init_mlp(gen, cfg, L, dtype, device)}
 
 
+def _init_ssm_layers(gen: torch.Generator, cfg: ArchConfig, L: int, dtype,
+                     device) -> Params:
+    """Mamba-2 blocks; in a model with experts (granite-4.0-h) each is
+    followed by a second norm and the MoE FFN (``ln2``, ``mlp``)."""
+    blk = mamba2.init_ssm_block(gen, cfg, L, dtype, device)
+    if cfg.n_experts:
+        blk.update(ln2=_norm_init(cfg, L, dtype, device),
+                   mlp=moe.init_moe_mlp(gen, cfg, L, dtype, device))
+    return blk
+
+
 _LAYER_INIT = {"attn": _init_attn_layers, "moe": _init_moe_layers,
-               "ssm": mamba2.init_ssm_block, "rec": _init_rec_layers}
+               "ssm": _init_ssm_layers, "rec": _init_rec_layers}
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=None,
@@ -246,10 +269,11 @@ def attn_out_ffn(cfg, p, x, o, *, dropless: bool = False):
     """The rest of an attention layer after its attention output o (B, S,
     Hq, hd): the output projection into the residual, the second norm and
     the FFN.  Returns (x, aux)."""
-    x = constrain(x + project(o.reshape(*x.shape[:2], -1), p["wo"]), "act")
+    x = constrain(x + residual_scaled(
+        cfg, project(o.reshape(*x.shape[:2], -1), p["wo"])), "act")
     y, aux = _ffn(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x),
                   dropless=dropless)
-    return constrain(x + y, "act"), aux
+    return constrain(x + residual_scaled(cfg, y), "act"), aux
 
 
 def project_q(cfg, p, h):
@@ -282,7 +306,10 @@ def _project_qkv(cfg, p, h):
 
 
 def rope(cfg, x, positions):
-    """RoPE, or M-RoPE with (B, S, 3) positions for an M-RoPE model."""
+    """RoPE, or M-RoPE with (B, S, 3) positions for an M-RoPE model; x
+    itself for a model without position embedding (NoPE)."""
+    if not cfg.use_rope:
+        return x
     if cfg.mrope:
         return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, positions, cfg.rope_theta)
@@ -306,12 +333,18 @@ def attn_layer_fwd(cfg, p, x, positions, *, kv_write=None):
     k = constrain(rope(cfg, k, positions), "heads")
     v = constrain(v, "heads")
     o = attn_lib.attention(q, k, v, causal=cfg.causal,
-                           window=cfg.attn_window)
+                           window=cfg.attn_window, scale=attn_scale(cfg))
     if kv_write is not None:
         for dst, t in zip(kv_write, (k, v)):
             _place_kv(dst, t, dst.shape[1], clear=True)
     x, aux = attn_out_ffn(cfg, p, x, o)
     return x, (k, v), aux
+
+
+def attn_scale(cfg) -> Optional[float]:
+    """The score scale: ``cfg.attention_multiplier``, or None for the
+    kernels' head_dim ** -0.5."""
+    return cfg.attention_multiplier or None
 
 
 def _place_kv(dst, kv, cap: int, *, clear: bool = False) -> None:
@@ -355,14 +388,16 @@ def attn_layer_step(cfg, p, x, positions, k_cache, v_cache, valid_old,
         q = rope(cfg, q, positions)
         k = rope(cfg, k, positions)
     o = attn_lib.decode_attention_merged(q, k_cache, v_cache, valid_old,
-                                         k, v, kv_slot_mask=slot_mask)
+                                         k, v, kv_slot_mask=slot_mask,
+                                         scale=attn_scale(cfg))
     if not fused:
         x, _ = attn_out_ffn(cfg, p, x, o, dropless=True)
         return x, k[:, 0], v[:, 0]
-    x, h2 = ops.rms_norm(project(o.reshape(*x.shape[:2], -1), p["wo"]),
-                         p["ln2"], cfg.norm_eps, residual=x)
+    x, h2 = ops.rms_norm(residual_scaled(
+        cfg, project(o.reshape(*x.shape[:2], -1), p["wo"])),
+        p["ln2"], cfg.norm_eps, residual=x)
     y, _ = _ffn(cfg, p["mlp"], h2, dropless=True)
-    return x + y, k[:, 0], v[:, 0]
+    return x + residual_scaled(cfg, y), k[:, 0], v[:, 0]
 
 
 def _decode_cache_view(cfg, cache_len, C: int):
@@ -379,6 +414,34 @@ def _decode_cache_view(cfg, cache_len, C: int):
     j = torch.arange(C, device=cache_len.device)[None, :]
     p_len = cache_len[:, None]
     return valid_old, (j < p_len) & ((p_len < C) | (j != p_len % C))
+
+
+def ssm_layer_fwd(cfg, p, x, *, conv_state=None, ssm_state=None):
+    """Full-sequence SSM layer: the Mamba-2 block (``mamba2.ssm_block_fwd``:
+    pre-norm, mixer, scaled residual), then, where the layer has one
+    (granite-4.0-h), the second norm and the FFN into the scaled residual:
+    the MoE's sorted path, which drops nothing.  Returns (x, (conv_state,
+    ssm_state))."""
+    x, states = mamba2.ssm_block_fwd(cfg, p, x, conv_state=conv_state,
+                                     ssm_state=ssm_state)
+    if "mlp" in p:
+        y, _ = _ffn(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+        x = constrain(x + residual_scaled(cfg, y), "act")
+    return x, states
+
+
+def ssm_layer_step(cfg, p, x, conv_state, ssm_state):
+    """Single-token SSM layer. x: (B, 1, D); the FFN, where the layer has
+    one, on the dropless decode path.  Returns (x, conv_state,
+    ssm_state) with new state tensors."""
+    y, (conv_s, state) = mamba2.ssm_block_step(cfg, p, x[:, 0], conv_state,
+                                               ssm_state)
+    x = y[:, None]
+    if "mlp" in p:
+        f, _ = _ffn(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x),
+                    dropless=True)
+        x = x + residual_scaled(cfg, f)
+    return x, conv_s, state
 
 
 def rec_layer_fwd(cfg, p, x, *, conv_state=None, h0=None):
@@ -407,6 +470,13 @@ def rec_layer_step(cfg, p, x, conv_state, h):
 # Full-model forward
 # ---------------------------------------------------------------------------
 
+def _embed_scaled(cfg, x):
+    """Embedded tokens times ``cfg.embedding_multiplier`` (no operation
+    where it is 1)."""
+    em = cfg.embedding_multiplier
+    return x if em == 1.0 else x * em
+
+
 def embed_tokens(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x (B,S,D), positions): ``batch["embeds"]`` (B, S, D) or the
     embedded ``batch["tokens"]``; ``batch["positions"]`` ((B, S), or (B,
@@ -419,6 +489,7 @@ def embed_tokens(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         # in every torch version the port meets, where index_put's fails
         # on a batch-split gradient in torch 2.11
         x = torch.nn.functional.embedding(batch["tokens"], params["embed"])
+        x = _embed_scaled(cfg, x)
     if "positions" in batch:
         return constrain(x, "act"), batch["positions"]
     B, S = x.shape[:2]
@@ -453,8 +524,11 @@ def unembed(cfg, params, x) -> torch.Tensor:
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if x.device.type != "cpu" and x.dtype != torch.float32:
         y = _Float32Product.apply(fold_rows(x), head)
-        return constrain(unfold_rows(y, x), "logits")
-    return constrain(project(x.float(), head.float()), "logits")
+        y = constrain(unfold_rows(y, x), "logits")
+    else:
+        y = constrain(project(x.float(), head.float()), "logits")
+    # granite-4.0-h divides its logits (no operation where the scale is 1)
+    return y if cfg.logits_scaling == 1.0 else y / cfg.logits_scaling
 
 
 def _kind_runs(kinds: List[str]) -> List[Tuple[str, int]]:
@@ -507,7 +581,7 @@ def _train_layer(cfg, kind, p, x, positions):
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return x, aux
-    fwd = mamba2.ssm_block_fwd if kind == "ssm" else rec_layer_fwd
+    fwd = ssm_layer_fwd if kind == "ssm" else rec_layer_fwd
     x, _ = fwd(cfg, p, x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -568,7 +642,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
             _place_kv(cache["attn"]["k"][a], k, cap)
             _place_kv(cache["attn"]["v"][a], v, cap)
         else:
-            fwd = mamba2.ssm_block_fwd if kind == "ssm" else rec_layer_fwd
+            fwd = ssm_layer_fwd if kind == "ssm" else rec_layer_fwd
             x, states = fwd(cfg, p, x)
             # leaves in the order the block returns
             for leaf, st in zip(cache[kind], states):
@@ -602,7 +676,8 @@ def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
     if "embeds" in batch:
         x = batch["embeds"]
     else:
-        x = params["embed"][batch["tokens"].reshape(-1)][:, None, :]
+        x = _embed_scaled(cfg, params["embed"][batch["tokens"].reshape(-1)][
+            :, None, :])
     B = x.shape[0]
     pos = cache["pos"]
     if pos.dim() == 0:
@@ -618,7 +693,7 @@ def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
     if "attn" in cache:
         valid_old, slot_mask = _decode_cache_view(
             cfg, pos, cache["attn"]["k"].shape[2])
-        if fused and not cfg.mrope:
+        if fused and cfg.use_rope and not cfg.mrope:
             inv_freq = kept_rope_freqs(cfg.resolved_head_dim,
                                        cfg.rope_theta, x.device)
             positions = positions.reshape(B).to(torch.int32).contiguous()
@@ -635,11 +710,9 @@ def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
             v_rows.append(vn)
         elif kind == "ssm":
             conv, state = cache["ssm"]["conv"][i], cache["ssm"]["state"][i]
-            y, (conv_new, state_new) = mamba2.ssm_block_step(
-                cfg, p, x[:, 0], conv, state)
+            x, conv_new, state_new = ssm_layer_step(cfg, p, x, conv, state)
             conv.copy_(conv_new)
             state.copy_(state_new)
-            x = y[:, None]
         else:
             conv, h = cache["rec"]["conv"][i], cache["rec"]["h"][i]
             x, conv_new, h_new = rec_layer_step(cfg, p, x, conv, h)

@@ -72,12 +72,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.adapter_scheduler import EpochSchedulerPolicy
 from repro_torch.core.kv_reconstruct import reconstruct_cache
 from repro_torch.kernels import ops
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.serving.prefix_cache import PrefixCache, PrefixEntry
 from repro_torch.serving.snapshot import (KINDS, KVSnapshot, dtype_name,
                                           export_slot, export_slots,
                                           leaf_tensor)
-from repro_torch.serving.tracing import TRACER, DecodeRec, PrefillRec
+from repro_torch.serving.tracing import (TRACER, CacheRec, DecodeRec,
+                                         PrefillRec)
 
 BUCKET_MIN = 16
 
@@ -173,6 +174,16 @@ def _own_copy(tree, owned: FrozenSet[LeafPath], path: LeafPath = ()):
     return out
 
 
+def _cache_rec(cache) -> CacheRec:
+    """The bytes of a slot cache by kind: attention K/V, conv windows, and
+    SSM or RG-LRU states."""
+    by = {"kv": 0, "conv": 0, "ssm": 0}
+    for path, t in _leaves({k: v for k, v in cache.items() if k != "pos"}):
+        by["kv" if path[0] == "attn" else
+           "conv" if path[-1] == "conv" else "ssm"] += t.nbytes
+    return CacheRec(TRACER.clock, by["kv"], by["conv"], by["ssm"])
+
+
 class ContinuousBatcher:
     """Slot-based continuous batching over the stacked-cache model.
 
@@ -194,6 +205,7 @@ class ContinuousBatcher:
             cfg, n_slots, max_len, params["embed"].dtype, self.device)
         self.cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32,
                                         device=self.device)
+        TRACER.cache.append(_cache_rec(self.cache))
         self.active: Dict[int, ServeRequest] = {}     # slot -> request
         self.free: List[int] = list(range(n_slots))
         # padded prefill is exact only for pure attention with a
@@ -350,23 +362,30 @@ class ContinuousBatcher:
         single prefill or the injected belt) and write the first
         ``len(slots)`` rows into their slots in place (one ``index_copy_``
         per cache leaf); the remaining rows are padding.  Returns the
-        sampled first tokens and the bytes of the transient cache the
-        prefill built."""
+        sampled first tokens, the bytes of the transient cache the prefill
+        built, the bytes of recurrent state written into the slots and, for
+        a model with experts on the single prefill, the count of dropped
+        (token, choice) assignments as a device scalar (else None)."""
+        dropped = None
         if backend == "pipeline":
             logits, c1 = self._pipe_prefill(
                 self._params, {"tokens": toks, "last_index": last_idx})
         else:
             self._prefill_shapes.add(tuple(toks.shape))
-            logits, c1 = transformer.forward(
-                self.cfg, self._params, {"tokens": toks}, mode="prefill",
-                max_len=self.max_len, last_index=last_idx)
+            with moe.record_routing() as routed:
+                logits, c1 = transformer.forward(
+                    self.cfg, self._params, {"tokens": toks}, mode="prefill",
+                    max_len=self.max_len, last_index=last_idx)
+            if routed:
+                dropped = sum((~keep).sum() for _, keep in routed)
         n = slots.shape[0]
-        self._scatter({kind: {leaf: rows[:, :n]
-                              for leaf, rows in c1[kind].items()}
-                       for kind in KINDS if kind in c1},
-                      slots, c1["pos"][:n])
+        rows = {kind: {leaf: t[:, :n] for leaf, t in c1[kind].items()}
+                for kind in KINDS if kind in c1}
+        self._scatter(rows, slots, c1["pos"][:n])
+        state = sum(t.nbytes for kind in ("ssm", "rec") if kind in rows
+                    for t in rows[kind].values())
         return (self._sampler(logits).to(torch.int32),
-                sum(t.nbytes for _, t in _leaves(c1)))
+                sum(t.nbytes for _, t in _leaves(c1)), state, dropped)
 
     def _scatter(self, rows: Dict[str, Dict[str, torch.Tensor]], slots,
                  pos) -> None:
@@ -565,15 +584,18 @@ class ContinuousBatcher:
         with tr.span("batcher.prefill", rows=P, bucket=bucket, tokens=real,
                      requests=len(reqs), backend=backend):
             t0 = time.perf_counter_ns()
-            first, cache_bytes = self._prefill_write(
+            first, cache_bytes, state_bytes, dropped = self._prefill_write(
                 torch.from_numpy(toks).to(dev),
                 torch.from_numpy(last_idx).to(dev),
                 torch.from_numpy(slots).to(dev), backend)
             # pbcheck: disable=R2 (designed sync: admission reads first tokens to catch immediate EOS before slot commit)
             first_host = first.cpu().numpy()
             t1 = time.perf_counter_ns()
+        # pbcheck: disable=R2 (the device is idle once the first tokens are on the host: the count is read after the timed prefill)
+        n_dropped = 0 if dropped is None else int(dropped)
         tr.prefill.append(PrefillRec(tr.clock, P, bucket, real, len(reqs),
-                                     backend, cache_bytes, (t1 - t0) * 1e-9))
+                                     backend, cache_bytes, (t1 - t0) * 1e-9,
+                                     state_bytes, n_dropped))
         if backend == "pipeline":
             self.n_prefill_pipeline += len(reqs)
         self.n_prefill_calls += 1

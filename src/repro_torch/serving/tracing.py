@@ -14,7 +14,13 @@ from the ``time.perf_counter_ns`` reads the step takes anyway.
   (``ContinuousBatcher._admit_rows``): rows P, bucket, real tokens,
   requests, backend, the bytes of the transient cache the prefill built,
   and host seconds from the padded tokens' upload to the first tokens on
-  the host (synchronous: it ends in the admission's read of them).
+  the host (synchronous: it ends in the admission's read of them); then
+  the bytes of recurrent state (SSM and RG-LRU conv windows and states)
+  it wrote into the slots, and the (token, choice) assignments its MoE
+  layers dropped over their capacity.
+* ``cache`` (``CacheRec``): one per ``ContinuousBatcher`` built (a
+  set-up counter): the bytes of its slot cache by kind, attention K/V
+  (``kv``), conv windows (``conv``) and SSM or RG-LRU states (``ssm``).
 * ``decode`` (``DecodeRec``): one per ``ContinuousBatcher.step``: live
   rows and host seconds in four parts that sum to the step's share of
   ``decode_time_s``: ``io`` (the step inputs' upload when slots changed),
@@ -29,7 +35,8 @@ Each holds name, id, parent id, start and end (``perf_counter_ns``) and
 attributes.  While a profiler records, each span also enters a profiler
 range of its name, so the trace holds the program's phases on its own
 clock: ``engine.step`` > ``engine.admit`` > (``engine.switch``,
-``batcher.prefill``), and ``engine.step`` > ``batcher.decode`` >
+``batcher.prefill`` > ``model.ssm_prefill``, one a Mamba-2 mixer's scan),
+and ``engine.step`` > ``batcher.decode`` >
 (``batcher.decode.io``, ``.launch``, ``.wait``, ``.book``).  The range is
 a function-scope one (``torch._C._profiler._RecordFunctionFast``), which
 the trace shows as a host op: ``torch.profiler.record_function``'s
@@ -59,6 +66,15 @@ class PrefillRec(NamedTuple):
     backend: str            # "single" or "pipeline"
     cache_bytes: int        # the transient cache the prefill built
     seconds: float
+    state_bytes: int = 0    # recurrent state written into the slots
+    dropped: int = 0        # MoE assignments dropped over capacity
+
+
+class CacheRec(NamedTuple):
+    clock: Optional[float]
+    kv: int                 # attention K and V
+    conv: int               # SSM and RG-LRU conv windows
+    ssm: int                # SSM and RG-LRU states
 
 
 class DecodeRec(NamedTuple):
@@ -152,6 +168,7 @@ class Tracer:
 
     def __init__(self, maxlen: int = RING):
         self.prefill: Deque[PrefillRec] = collections.deque(maxlen=maxlen)
+        self.cache: Deque[CacheRec] = collections.deque(maxlen=maxlen)
         self.decode: Deque[DecodeRec] = collections.deque(maxlen=maxlen)
         self.spans: Deque[Span] = collections.deque(maxlen=maxlen)
         self.clock: Optional[float] = None
@@ -173,7 +190,7 @@ class Tracer:
 
     def clear(self) -> None:
         """Drop every record and span kept so far."""
-        for ring in (self.prefill, self.decode, self.spans):
+        for ring in (self.prefill, self.cache, self.decode, self.spans):
             ring.clear()
 
 

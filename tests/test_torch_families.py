@@ -21,7 +21,7 @@ from repro.core.adapter_scheduler import EpochSchedulerPolicy as JPolicy
 from repro.lora import adapters as jlora
 from repro.models import transformer as JT
 from repro.serving import engine as jserve
-from repro_torch.configs.base import get_arch
+from repro_torch.configs.base import get_arch, shared_fields
 from repro_torch.convert import params_from_jax, to_numpy
 from repro_torch.core.adapter_scheduler import EpochSchedulerPolicy
 from repro_torch.launch import serve
@@ -43,7 +43,7 @@ def _close(a, b, tol=LOGIT_TOL):
 def _pair(arch, **over):
     jcfg = jget_arch(arch).reduced(**over)
     tcfg = get_arch(arch).reduced(**over)
-    assert tcfg.__dict__ == jcfg.__dict__
+    assert shared_fields(tcfg) == jcfg.__dict__
     with stable_init():
         jparams = JT.init_params(jcfg, KEY)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")

@@ -6,6 +6,8 @@ made with numpy from a seed.  Tolerances: 2e-5 on float32 layer outputs
 (the reference's kernel tolerance) and 1e-4 absolute on float32 logits and
 caches after a prefill and six decode steps.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +18,8 @@ from repro.configs.base import get_arch as jget_arch
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import transformer as JT
-from repro_torch.configs.base import get_arch
+from repro_torch.configs.base import (PORT_ONLY_FIELDS, ArchConfig, get_arch,
+                                     shared_fields)
 from repro_torch.convert import params_from_jax, to_numpy
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
@@ -39,12 +42,15 @@ def test_configs_are_own_copies_of_the_reference():
     from repro.configs.base import ARCH_IDS as J_IDS
     from repro_torch.configs.base import ARCH_IDS
     assert ARCH_IDS == J_IDS
+    defaults = {f.name: f.default for f in dataclasses.fields(ArchConfig)}
     for name in ARCH_IDS:
         a, b = get_arch(name), jget_arch(name)
-        assert a.__dict__ == b.__dict__
+        assert shared_fields(a) == b.__dict__
+        assert {f: getattr(a, f) for f in PORT_ONLY_FIELDS} == \
+            {f: defaults[f] for f in PORT_ONLY_FIELDS}
         assert a.padded_vocab == b.padded_vocab
         assert a.param_count() == b.param_count()
-        assert a.reduced().__dict__ == b.reduced().__dict__
+        assert shared_fields(a.reduced()) == b.reduced().__dict__
 
 
 @pytest.mark.parametrize("act", ["silu", "gelu", "relu"])
@@ -152,7 +158,7 @@ def test_forward_and_decode_match(case):
     jcfg = make_cfg()
     tcfg = get_arch(jcfg.name).reduced(
         **{f: getattr(jcfg, f) for f in ("attn_window",)})
-    assert tcfg.__dict__ == jcfg.__dict__
+    assert shared_fields(tcfg) == jcfg.__dict__
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(3))
     if edit is not None:
         jparams = edit(jparams)

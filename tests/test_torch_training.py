@@ -30,7 +30,7 @@ from repro.configs.base import get_arch as jget_arch
 from repro.models import transformer as JT
 from repro.training import optimizer as jopt
 from repro.training import train as jtrain
-from repro_torch.configs.base import get_arch
+from repro_torch.configs.base import get_arch, shared_fields
 from repro_torch.convert import params_from_jax, to_numpy
 from repro_torch.training import optimizer as topt
 from repro_torch.training import train as ttrain
@@ -70,7 +70,7 @@ def _tree_close(got, want, tol, what=""):
 def _pair(arch, **over):
     jcfg = jget_arch(arch).reduced(**over)
     tcfg = get_arch(arch).reduced(**over)
-    assert tcfg.__dict__ == jcfg.__dict__
+    assert shared_fields(tcfg) == jcfg.__dict__
     with stable_init():
         jparams = JT.init_params(jcfg, KEY)
     return jcfg, jparams, tcfg
