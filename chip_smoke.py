@@ -55,7 +55,16 @@ Phases (any failure exits non-zero and prints no result line):
    bytes bound, the norm also beside ``torch.nn.functional.rms_norm``.
    Every decode step of phases 4-12 runs them in its attention layers (two
    norms and one RoPE a layer, the final norm; M-RoPE stays plain), and
-   the launch checks count them.
+   the launch checks count them.  Then ``check_ssm_step``: the Mamba-2
+   decode step's in-place state update at granite-4.0-h-small's (128
+   slots, 128 heads of 64, state 128) and mamba2-780m's (4 slots, 48
+   heads) decode shapes, bf16 and float32, 4 chained steps: each step's
+   state within four float32 ulps of |s dA| + |dt x B| of the plain
+   version run from the kernel's previous state, y within the float32 sum
+   bound of its readout (and one bf16 ulp of the readout and of y), the
+   elements that differ printed; timed beside the plain version and the
+   bytes bound (the state read and written once).  Every SSM decode step
+   of phases 4-12 runs it, one launch a layer.
 4. Model: the same weights and teacher-forced tokens through prefill and 4
    zero-copy decode steps, once through the kernels and once through the
    plain versions, for pipeboost-opt-1.3b at full width (24 layers),
@@ -847,6 +856,107 @@ def check_norm_rope(torch, ops, dev, results):
     results["rope"] = dict(rope.pop("opt"), **rope)
 
 
+# granite-4.0-h-small's decode step at 128 slots, then mamba2-780m's at
+# phase 5's 4 slots: (B, H, P, N)
+SSM_STEP_SHAPES = {"granite": (128, 128, 64, 128), "mamba2": (4, 48, 64, 128)}
+
+
+def check_ssm_step(torch, ops, dev, results):
+    """The Mamba-2 decode step's state-update kernel against its plain
+    version, at granite-4.0-h-small's and mamba2-780m's decode shapes in
+    bf16 and float32, over 4 chained steps through the views
+    ``mixer_step`` passes: each step's state within four float32 ulps of
+    |s dA| + |dt x B| of the plain version run from the kernel's previous
+    state (the elements that differ at all printed), y within N 2^-24 of
+    sum |C s'| + |D x| and, in bf16, one bf16 ulp of the readout and one
+    of y; then timed at each shape beside the plain version and the bytes
+    bound (no single PyTorch call computes it)."""
+    from repro_torch.kernels import ssm_step as ssm
+    F = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(15)
+    print(f"  torch.einsum through opt_einsum: "
+          f"{torch.backends.opt_einsum.is_available()}")
+
+    def make(B, H, P, N, dtype):
+        """The per-step operands as views, as ``mixer_step`` makes them."""
+        di = H * P
+        conv_out = F.silu(torch.randn((B, di + 2 * N), generator=g,
+                                      device=dev)).to(dtype)
+        proj = torch.randn((B, 2 * di + 2 * N + H), generator=g,
+                           device=dev).to(dtype)
+        return (conv_out[:, :di].reshape(B, H, P), proj[:, -H:],
+                conv_out[:, di:di + N], conv_out[:, di + N:])
+
+    out = {}
+    for tag, (B, H, P, N) in SSM_STEP_SHAPES.items():
+        state = torch.randn((B, H, P, N), generator=g, device=dev)
+        dt_bias = torch.randn((H,), generator=g, device=dev) * 0.5
+        A_log = torch.log(torch.linspace(1.0, 16.0, H, device=dev))
+        D_skip = torch.randn((H,), generator=g, device=dev)
+        worst = 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            unequal, y_unequal, ratio = 0, 0, 0.0
+            for _ in range(4):
+                x, dt_raw, Bm, Cm = make(B, H, P, N, dtype)
+                args = (x, dt_raw, dt_bias, A_log, Bm, Cm, D_skip)
+                prev = state.clone()
+                y = ops.ssm_step(state, *args)
+                torch.cuda.synchronize()
+                want_state = prev.clone()
+                want = ssm.ssm_step_plain(want_state, *args)
+                dt = F.softplus(dt_raw.float() + dt_bias)
+                dA = torch.exp(dt * -torch.exp(A_log))
+                mag = (prev.abs() * dA[..., None, None]
+                       + (dt[..., None] * x.float()).abs()[..., None]
+                       * Bm.float().abs()[:, None, None, :])
+                ratio = max(ratio, ((state - want_state).abs()
+                                    / (2.0 ** -21 * mag)).nan_to_num(
+                                        0.0).max().item())
+                unequal += int((state != want_state).sum().item())
+                readout = torch.einsum("bn,bhpn->bhp", Cm.float(),
+                                       want_state)
+                dx = (D_skip.to(dtype)[:, None] * x).float()
+                limit = N * 2.0 ** -24 * (torch.einsum(
+                    "bn,bhpn->bhp", Cm.float().abs(), want_state.abs())
+                    + dx.abs())
+                if dtype == torch.bfloat16:
+                    for v in (readout, want.float()):
+                        _, e = torch.frexp(v.abs())
+                        limit = limit + torch.ldexp(torch.ones_like(v),
+                                                    e - 8)
+                diff = (y.float() - want.float()).abs()
+                require(bool((diff <= limit).all()),
+                        f"ssm_step {tag} {dtype}: y beyond its limit")
+                y_unequal += int((diff > 0).sum().item())
+                worst = max(worst, diff.max().item())
+                del prev, want_state, mag, readout
+            print(f"  ssm_step {tag} {B} x {H} x {P} x {N} {dtype}, 4 "
+                  f"chained steps: state elements that differ "
+                  f"{unequal} of {4 * state.numel()} (largest at "
+                  f"{ratio:.3f} of its limit), y elements that differ "
+                  f"{y_unequal} of {4 * B * H * P}")
+            require(ratio <= 1.0, f"ssm_step {tag} {dtype}: state beyond "
+                    f"four float32 ulps")
+        x, dt_raw, Bm, Cm = make(B, H, P, N, torch.bfloat16)
+        args = (state, x, dt_raw, dt_bias, A_log, Bm, Cm, D_skip)
+        ms, paced_ms = time_ms(torch, f"ssm_step kernel {tag}",
+                               [lambda: ops.ssm_step(*args)], 200)
+        plain_ms, _ = time_ms(torch, f"ssm_step plain {tag}",
+                              [lambda: ssm.ssm_step_plain(*args)], 20)
+        _, moved, _ = c = ssm.cost(batch=B, heads=H, head_dim=P, state=N)
+        b_ms, b_by = bound(c)
+        print(f"  ssm_step {tag} timed: kernel {ms:.4f} ms (host-paced "
+              f"{paced_ms:.4f}), plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
+              f"ms ({b_by}; {moved / 1e6:.2f} MB), {100 * b_ms / ms:.1f}% "
+              f"of it; no single PyTorch call")
+        out[tag] = dict(max_abs_err=worst, ms=ms, paced_ms=paced_ms,
+                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=None)
+        del state, args
+        torch.cuda.empty_cache()
+    results["ssm_step"] = dict(out.pop("granite"), at_mamba2=out["mamba2"])
+
+
 def check_ssd(torch, ops, dev, results):
     from repro_torch.kernels import ssd_scan as ssd
     F = torch.nn.functional
@@ -1074,7 +1184,9 @@ def check_model(torch, ops, dev, cfg):
             # a decode step's attention layers: two norms and one RoPE
             # each, and its final norm
             "rms_norm": 4 * (2 * n_attn + 1) if n_attn else 0,
-            "rope": 4 * n_attn}
+            "rope": 4 * n_attn,
+            # and one state update a decode step and Mamba-2 layer
+            "ssm_step": 4 * counts_by_kind.get("ssm", 0)}
     require(all(counts[k] == n for k, n in want.items()),
             f"{cfg.name}: launches {counts}, expected {want}")
     require(bool(torch.isfinite(kern).all()), f"{cfg.name}: non-finite")
@@ -2217,7 +2329,7 @@ def moe_kernels_vs_plain(torch, ops, dev):
     counts = ops.launch_counts()
     want = {"flash_attention": 4, "decode_attention": 4 * N,
             "lora_merge": 4, "ssd_scan": 0, "rglru_scan": 0,
-            "rms_norm": N * (2 * 4 + 1), "rope": 4 * N}
+            "rms_norm": N * (2 * 4 + 1), "rope": 4 * N, "ssm_step": 0}
     require(counts == want, f"9b launches {counts}, expected {want}")
     with ops.plain_versions():
         p16, _, rp16 = run(cfg16, params16, forced)
@@ -2487,7 +2599,7 @@ def qwen2_vl(torch, ops, dev):
     # M-RoPE takes the plain ops; the norms are fused
     want = {"flash_attention": 4, "decode_attention": 4 * N,
             "lora_merge": 0, "ssd_scan": 0, "rglru_scan": 0,
-            "rms_norm": N * (2 * 4 + 1), "rope": 0}
+            "rms_norm": N * (2 * 4 + 1), "rope": 0, "ssm_step": 0}
     require(counts == want, f"9e launches {counts}, expected {want}")
     err = (kern - plain).abs().max().item()
     scale = plain.abs().max().item()
@@ -3627,6 +3739,7 @@ def main() -> int:
     from repro_torch.kernels import rms_norm as rn
     from repro_torch.kernels import rope as rp
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import ssm_step as ssm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3680,6 +3793,7 @@ def main() -> int:
     check_ssd(torch, ops, dev, results)
     check_rglru(torch, ops, dev, results)
     check_norm_rope(torch, ops, dev, results)
+    check_ssm_step(torch, ops, dev, results)
     torch.cuda.empty_cache()
 
     print("== phase 4: model, kernels against plain versions")
@@ -3701,7 +3815,7 @@ def main() -> int:
             torch, ops, "pipeboost-opt-1.3b", 2,
             ("decode_attention", "flash_attention", "lora_merge") + FUSED),
         "mamba2-780m": end_to_end(torch, ops, "mamba2-780m", 0,
-                                  ("ssd_scan",)),
+                                  ("ssd_scan", "ssm_step")),
         "recurrentgemma-2b": end_to_end(
             torch, ops, "recurrentgemma-2b", 0,
             ("decode_attention", "flash_attention", "rglru_scan") + FUSED),
@@ -3714,7 +3828,7 @@ def main() -> int:
             ("decode_attention", "flash_attention", "lora_merge") + FUSED,
             ("flash_attention",)),
         "mamba2-780m": recovery(torch, ops, dev, "mamba2-780m", 0,
-                                ("ssd_scan",), ("ssd_scan",)),
+                                ("ssd_scan", "ssm_step"), ("ssd_scan",)),
         "recurrentgemma-2b": recovery(
             torch, ops, dev, "recurrentgemma-2b", 0,
             ("decode_attention", "flash_attention", "rglru_scan") + FUSED,
@@ -3808,7 +3922,7 @@ def main() -> int:
     print(f"== all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     kernels = []
-    for mod in (dec, fa, lm, ssd, rg, rn, rp):
+    for mod in (dec, fa, lm, ssd, rg, rn, rp, ssm):
         name = mod.__name__.rsplit(".", 1)[1]
         r = results[name]
         # launches: every serve run of phase 5 whose path runs the kernel
@@ -3843,7 +3957,7 @@ def main() -> int:
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"]}
         for extra in ("at_recurrentgemma", "at_s64", "at_qwen2_moe",
-                      "at_hubert", "no_residual", "unequal"):
+                      "at_hubert", "no_residual", "unequal", "at_mamba2"):
             if extra in r:
                 entry[extra] = r[extra]
         # launches of phase 10's and 12's train runs (10b the train step,

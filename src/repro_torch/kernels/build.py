@@ -72,6 +72,10 @@ _SIGNATURES = {
     # Hq, Hkv, hd, stream
     "pb_rope_qk": [_I, _I, _P, _P, _P, _P, _P, _P, _STRIDES, _I, _I, _I, _I,
                    _P],
+    # dtype, device, state, x, dt, dt_bias, A_log, Bm, Cm, D_skip, y,
+    # strides, B, H, P, N, stream
+    "pb_ssm_step": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _STRIDES,
+                    _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -28,9 +28,12 @@ them and every other dim made whole on each rank (a sequence split over
 sequence, which is the reference's semantics, and the outputs come back
 in the input's own placements.  ``decode_attention``, ``lora_merge``,
 ``rms_norm`` and ``rope_qk`` serve only and refuse a DTensor.
+``ssm_step`` serves only too, and runs its plain version on DTensors (the
+dry run's decode cells trace it through ``traced``).
 
 ``rms_norm`` and ``rope_qk`` take the decode step's rows as they are:
-(B, 1, D) activations and (B, 1, H, d) heads.
+(B, 1, D) activations and (B, 1, H, d) heads.  ``ssm_step`` updates the
+Mamba-2 state it is given in place.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import rms_norm as _rn
 from repro_torch.kernels import rope as _rope
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import ssm_step as _ssm
 
 _PLAIN = [False]
 _TRACER = [None]
@@ -187,9 +191,20 @@ def rope_qk(q, k, positions, inv_freq):
     return fn(q, k, positions, inv_freq)
 
 
+def ssm_step(state, x, dt, dt_bias, A_log, Bm, Cm, D_skip):
+    """One Mamba-2 decode token: state (B,H,P,N) float32, updated in
+    place; x (B,H,P); raw dt (B,H); dt_bias, A_log, D_skip (H,) float32;
+    Bm/Cm (B,N) -> y (B,H,P) in x's dtype (the D skip added)."""
+    args = (state, x, dt, dt_bias, A_log, Bm, Cm, D_skip)
+    if _TRACER[0] is not None:
+        return _TRACER[0]("ssm_step", args, {})
+    plain = _PLAIN[0] or _any_dtensor(*args)
+    return (_ssm.ssm_step_plain if plain else _ssm.ssm_step)(*args)
+
+
 _COUNTED = {"decode_attention": _dec, "flash_attention": _fa,
             "lora_merge": _lm, "ssd_scan": _ssd, "rglru_scan": _rg,
-            "rms_norm": _rn, "rope": _rope}
+            "rms_norm": _rn, "rope": _rope, "ssm_step": _ssm}
 
 
 # replays of captured CUDA graphs: {a replay's launches, as sorted

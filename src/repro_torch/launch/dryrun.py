@@ -81,6 +81,7 @@ from repro_torch.kernels import lora_merge as _lm
 from repro_torch.kernels import ops
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import ssm_step as _ssm
 from repro_torch.launch import rooflines as rf
 from repro_torch.launch.mesh import Mesh, data_axes, make_production_mesh
 from repro_torch.models import transformer
@@ -766,6 +767,17 @@ class _Counter(TorchDispatchMode):
                      self._out(x, (B, H, P, N), torch.float32,
                                (0, 2, 3, None))),
             lambda: _ssd.cost(**kw, grad=True))
+
+    def _ssm_step(self, state, x, dt, dt_bias, A_log, Bm, Cm, D_skip):
+        """One Mamba-2 decode token: the state is updated in place, so
+        only y is made."""
+        x, Bm = self._settle(x), self._settle(Bm)
+        lx = getattr(x, "_local_tensor", x)
+        Bl, Hl, P = lx.shape
+        self._charge(_ssm.cost(batch=Bl, heads=Hl, head_dim=P,
+                               state=Bm.shape[-1],
+                               dtype=str(x.dtype).replace("torch.", "")))
+        return self._out(x, x.shape, x.dtype, (0, 1, 2))
 
     def _rglru_scan(self, log_a, bx, *, h0):
         log_a, bx = self._settle(log_a), self._settle(bx)

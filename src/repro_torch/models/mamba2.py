@@ -7,11 +7,12 @@ form), ``ssm_block_fwd`` runs every scan, from an empty or a given state,
 through ``ops.ssd_scan``: the SSD scan kernel on the card, its plain
 version on the CPU.
 
-Decode is the O(1)-per-token recurrent form (``ssm_block_step``).  The
-block is its pre-norm, the mixer (``mixer_fwd``, ``mixer_step``: in_proj,
-the causal conv with its bias where the model has one, the scan, the gated
-RMSNorm, out_proj) and the residual add, scaled where the model scales
-it (granite-4.0-h).
+Decode is the O(1)-per-token recurrent form (``ssm_block_step``), its
+state update and readout one ``ops.ssm_step`` that updates the state in
+place (the ``ssm_step`` kernel on the card).  The block is its pre-norm,
+the mixer (``mixer_fwd``, ``mixer_step``: in_proj, the causal conv with
+its bias where the model has one, the scan, the gated RMSNorm, out_proj)
+and the residual add, scaled where the model scales it (granite-4.0-h).
 Parameters keep the reference's layout and names; the port stacks them on
 a leading layer axis.
 """
@@ -109,16 +110,19 @@ def mixer_fwd(cfg, p, h, *, conv_state=None, ssm_state=None):
 
 def ssm_block_step(cfg, p, x_t, conv_state, ssm_state):
     """Single-token decode. x_t: (B, D); states from prefill.  Returns
-    (x, (conv_state, ssm_state)) with new state tensors."""
+    (x, (conv_state, ssm_state)): a new conv state tensor, and
+    ``ssm_state`` itself, updated in place."""
     h = rms_norm(p["norm"], x_t, cfg.norm_eps)
     y, states = mixer_step(cfg, p, h, conv_state, ssm_state)
     return x_t + residual_scaled(cfg, y), states
 
 
 def mixer_step(cfg, p, h, conv_state, ssm_state):
-    """The mixer on one normed token h (B, D), the O(1) recurrent form.
-    Returns (out (B, D), (conv_state, ssm_state)) with new state
-    tensors."""
+    """The mixer on one normed token h (B, D), the O(1) recurrent form:
+    the state update, its readout and the D skip are one ``ops.ssm_step``
+    on views of the conv's output.  Returns (out (B, D), (conv_state,
+    ssm_state)): a new conv state tensor, and ``ssm_state`` itself,
+    updated in place."""
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     zxbcdt = h @ p["in_proj"]
     z, _, _, _, dt = _split_in_proj(cfg, zxbcdt)
@@ -126,17 +130,11 @@ def mixer_step(cfg, p, h, conv_state, ssm_state):
                                                   _conv_in(cfg, zxbcdt),
                                                   conv_state, p.get("conv_b"))
     conv_out = F.silu(conv_out)
+    # views of conv_out: the kernel reads them through their strides
     xs = conv_out[..., :di].reshape(-1, H, P)
-    B = conv_out[..., di:di + N].float()
-    C = conv_out[..., di + N:].float()
-    dt = F.softplus(dt.float() + p["dt_bias"])                   # (B,H)
-    A = -torch.exp(p["A_log"])
-    dA = torch.exp(dt * A)                                       # (B,H)
-    # h_new = dA * h + dt * B (outer) x
-    dBx = torch.einsum("bh,bn,bhp->bhpn", dt, B, xs.float())
-    new_state = ssm_state * dA[..., None, None] + dBx
-    y = torch.einsum("bn,bhpn->bhp", C, new_state).to(h.dtype)
-    y = y + p["D_skip"].to(y.dtype)[:, None] * xs
+    y = ops.ssm_step(ssm_state, xs, dt, p["dt_bias"], p["A_log"],
+                     conv_out[..., di:di + N], conv_out[..., di + N:],
+                     p["D_skip"])
     y = y.reshape(-1, di)
     y = rms_norm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)
-    return y @ p["out_proj"], (new_conv_state, new_state)
+    return y @ p["out_proj"], (new_conv_state, ssm_state)

@@ -433,7 +433,8 @@ def ssm_layer_fwd(cfg, p, x, *, conv_state=None, ssm_state=None):
 def ssm_layer_step(cfg, p, x, conv_state, ssm_state):
     """Single-token SSM layer. x: (B, 1, D); the FFN, where the layer has
     one, on the dropless decode path.  Returns (x, conv_state,
-    ssm_state) with new state tensors."""
+    ssm_state): a new conv state tensor, and ``ssm_state`` itself, updated
+    in place."""
     y, (conv_s, state) = mamba2.ssm_block_step(cfg, p, x[:, 0], conv_state,
                                                ssm_state)
     x = y[:, None]
@@ -710,9 +711,9 @@ def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
             v_rows.append(vn)
         elif kind == "ssm":
             conv, state = cache["ssm"]["conv"][i], cache["ssm"]["state"][i]
-            x, conv_new, state_new = ssm_layer_step(cfg, p, x, conv, state)
+            # the state is updated in place (``ops.ssm_step``)
+            x, conv_new, _ = ssm_layer_step(cfg, p, x, conv, state)
             conv.copy_(conv_new)
-            state.copy_(state_new)
         else:
             conv, h = cache["rec"]["conv"][i], cache["rec"]["h"][i]
             x, conv_new, h_new = rec_layer_step(cfg, p, x, conv, h)

@@ -22,8 +22,18 @@ arithmetic, each operation rounded alone, with the same ``cosf`` and
 ``sinf``: equal bit for bit.  Its RMSNorm kernel sums the squares in
 another order: within one ulp of the output dtype in bf16, and within
 2^-20 of |plain| (eight float32 ulps; the sum of D = 2048-2560 squares in
-another order) in float32; its residual sum bit for bit.
+another order) in float32; its residual sum bit for bit.  The Mamba-2
+decode step's kernel rounds each product and sum of the state alone in
+the plain version's order: each step's state within four float32 ulps of
+|s dA| + |dt x B| of the plain version run from the kernel's previous
+state (equal where the card's einsum takes (dt x) B first); its readout
+sums N terms in another order, so float32 y is held within N 2^-24 of
+sum |C s'| + |D x| (the worst case of a float32 sum of N terms) and bf16
+y within one bf16 ulp of the readout plus one of y (the readout's rounding
+can flip, then the sum's), beside that float32 bound.
 """
+import dataclasses
+
 import pytest
 import torch
 import torch.nn.functional as F
@@ -37,6 +47,7 @@ from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rms_norm as rn
 from repro_torch.kernels import rope as rp
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels import ssm_step as ssm
 from repro_torch.models import layers
 from repro_torch.models import transformer as T
 
@@ -334,13 +345,32 @@ def test_norm_and_rope_wrappers_refuse_on_the_card(card):
     assert (rn.launches, rp.launches) == (n0, r0)
 
 
-def test_replay_counts_the_fused_launches(card):
-    """One replay of a captured ContinuousBatcher step at pipeboost-opt-
-    1.3b's block (reduced width) launches 2L+1 ``rms_norm`` and L
-    ``rope``, beside L decode attentions, and nothing else counted."""
-    cfg = get_arch("pipeboost-opt-1.3b").reduced(
-        n_layers=4, d_model=256, n_heads=4, head_dim=64, d_ff=512,
-        dtype="bfloat16")
+def _granite(dtype="bfloat16", n_layers=20):
+    """granite-4.0-h-small's block at kernel-sized heads and reduced width:
+    layers 0-19 (18 Mamba-2 layers of state 128 and heads of 64, 2 NoPE
+    attention layers with heads of 64), 8 experts top 3."""
+    return dataclasses.replace(
+        get_arch("granite-4.0-h-small"), n_layers=n_layers, d_model=256,
+        n_heads=4, n_kv_heads=2, head_dim=64, d_ff=128, moe_d_ff=128,
+        shared_d_ff=128, n_experts=8, top_k=3, vocab_size=257,
+        dtype=dtype)
+
+
+@pytest.mark.parametrize("arch", ["pipeboost-opt-1.3b",
+                                  "granite-4.0-h-small"])
+def test_replay_counts_the_fused_launches(card, arch):
+    """One replay of a captured ContinuousBatcher step launches 2 A + 1
+    ``rms_norm``, A ``rope`` (none without position embedding) and A
+    decode attentions for A attention layers, and one ``ssm_step`` a
+    Mamba-2 layer: at pipeboost-opt-1.3b's block (reduced width) none, at
+    granite-4.0-h-small's first 20 layers (reduced width) 18; nothing
+    else counted."""
+    if arch == "pipeboost-opt-1.3b":
+        cfg = get_arch(arch).reduced(
+            n_layers=4, d_model=256, n_heads=4, head_dim=64, d_ff=512,
+            dtype="bfloat16")
+    else:
+        cfg = _granite()
     params = T.init_params(cfg, _gen(card, 3), device=card)
     srv, reqs = _serve(card, cfg, params, _prompts(cfg, n=2))
     srv.step()                          # admission + eager step + capture
@@ -348,11 +378,14 @@ def test_replay_counts_the_fused_launches(card):
     srv.step()
     srv.step()
     torch.cuda.synchronize()
-    L = cfg.n_layers
+    kinds = T.kind_counts(cfg)
+    A = kinds.get("attn", 0) + kinds.get("moe", 0)
     assert ops.launch_counts() == {
-        "decode_attention": 2 * L, "flash_attention": 0, "lora_merge": 0,
-        "ssd_scan": 0, "rglru_scan": 0, "rms_norm": 2 * (2 * L + 1),
-        "rope": 2 * L}
+        "decode_attention": 2 * A, "flash_attention": 0, "lora_merge": 0,
+        "ssd_scan": 0, "rglru_scan": 0, "rms_norm": 2 * (2 * A + 1),
+        "rope": 2 * A if cfg.use_rope else 0,
+        "ssm_step": 2 * kinds.get("ssm", 0)}
+    assert kinds.get("ssm", 0) == (18 if arch != "pipeboost-opt-1.3b" else 0)
     assert srv.batcher.compile_stats()["decode_compiles"] == 1
 
 
@@ -564,6 +597,95 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(card, what):
     assert ssd.launches == n0
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,P,N", [
+    (128, 128, 64, 128),         # granite-4.0-h-small: 128 slots
+    (4, 48, 64, 128),            # mamba2-780m
+    (3, 5, 7, 256),              # two vectors a lane, ragged P
+    (2, 4, 16, 16),              # N below a warp's row
+    (1, 3, 33, 132),             # N past 128, P past 4 warps' rows
+])
+def test_ssm_step_kernel_matches_plain(card, dtype, B, H, P, N):
+    """Four chained decode steps through the views ``mixer_step`` passes
+    (x, Bm and Cm of one conv output, dt of one projection, the state a
+    layer of a stacked cache): each step against the plain version run
+    from the kernel's previous state; the state updated where it lies."""
+    g = _gen(card, 9)
+    di = H * P
+    cache = torch.randn((2, B, H, P, N), generator=g, device=card)
+    state = cache[1]
+    ptr = state.data_ptr()
+    dt_bias = torch.randn((H,), generator=g, device=card) * 0.5
+    A_log = torch.log(torch.linspace(1.0, 16.0, H, device=card))
+    D_skip = torch.randn((H,), generator=g, device=card)
+    n0 = ssm.launches
+    unequal = 0
+    for step in range(4):
+        conv_out = F.silu(_rand((B, di + 2 * N), torch.float32, card,
+                                g)).to(dtype)
+        proj = _rand((B, 2 * di + 2 * N + H), dtype, card, g)
+        args = (conv_out[:, :di].reshape(B, H, P), proj[:, -H:], dt_bias,
+                A_log, conv_out[:, di:di + N], conv_out[:, di + N:], D_skip)
+        prev = state.clone()
+        y = ops.ssm_step(state, *args)
+        torch.cuda.synchronize()
+        want_state = prev.clone()
+        with ops.plain_versions():
+            want = ops.ssm_step(want_state, *args)
+        assert state.data_ptr() == ptr and y.dtype == dtype
+        assert y.shape == (B, H, P) and y.is_contiguous()
+        x, dt_raw, _, _, Bm, Cm, _ = args
+        dt = F.softplus(dt_raw.float() + dt_bias)
+        dA = torch.exp(dt * -torch.exp(A_log))
+        mag = (prev.abs() * dA[..., None, None]
+               + (dt[..., None] * x.float()).abs()[..., None]
+               * Bm.float().abs()[:, None, None, :])
+        assert bool(((state - want_state).abs() <= 2.0 ** -21 * mag).all())
+        unequal += int((state != want_state).sum().item())
+        readout = torch.einsum("bn,bhpn->bhp", Cm.float(), want_state)
+        dx = (D_skip.to(dtype)[:, None] * x).float()
+        y_mag = torch.einsum("bn,bhpn->bhp", Cm.float().abs(),
+                             want_state.abs()) + dx.abs()
+        limit = N * 2.0 ** -24 * y_mag
+        if dtype == torch.bfloat16:
+            def ulp(v):
+                _, e = torch.frexp(v.abs())
+                return torch.ldexp(torch.ones_like(v), e - 8)
+            limit = limit + ulp(readout) + ulp(want.float())
+        assert bool(((y.float() - want.float()).abs() <= limit).all())
+    assert ssm.launches == n0 + 4
+    print(f"ssm_step {B}x{H}x{P}x{N} {dtype}: {unequal} state elements of "
+          f"{4 * state.numel()} differ from the plain version's")
+
+
+@pytest.mark.parametrize("what", ["state on the host", "strided state",
+                                  "N=130", "float16", "bf16 D_skip"])
+def test_ssm_step_wrapper_rejects_what_the_kernel_does_not_take(card, what):
+    B, H, P, N = 2, 4, 16, 32
+    bf = torch.bfloat16
+    state = torch.zeros((B, H, P, N), device=card)
+    x = torch.zeros((B, H, P), device=card, dtype=bf)
+    dt = torch.zeros((B, H), device=card, dtype=bf)
+    vec = torch.zeros((H,), device=card)
+    Bm = Cm = torch.zeros((B, N), device=card, dtype=bf)
+    D_skip = vec
+    if what == "state on the host":
+        state = state.cpu()
+    elif what == "strided state":
+        state = torch.zeros((B, H, P, 2 * N), device=card)[..., :N]
+    elif what == "N=130":
+        Bm = Cm = torch.zeros((B, 130), device=card, dtype=bf)
+        state = torch.zeros((B, H, P, 130), device=card)
+    elif what == "float16":
+        x, dt, Bm, Cm = x.half(), dt.half(), Bm.half(), Cm.half()
+    else:
+        D_skip = vec.to(bf)
+    n0 = ssm.launches
+    with pytest.raises(ValueError):
+        ssm.ssm_step(state, x, dt, vec, vec, Bm, Cm, D_skip)
+    assert ssm.launches == n0
+
+
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-780m",
                                   "recurrentgemma-2b"])
 def test_model_kernels_match_plain(card, arch):
@@ -576,19 +698,19 @@ def test_model_kernels_match_plain(card, arch):
                                      n_kv_heads=2, head_dim=64,
                                      dtype="bfloat16")
         want = {"flash_attention": 2, "decode_attention": 8, "ssd_scan": 0,
-                "rglru_scan": 0, "rms_norm": 20, "rope": 8}
+                "rglru_scan": 0, "rms_norm": 20, "rope": 8, "ssm_step": 0}
     elif arch == "mamba2-780m":
         cfg = get_arch(arch).reduced(n_layers=2, d_model=256,
                                      ssm_head_dim=64, ssm_state=128,
                                      dtype="bfloat16")
         want = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 2,
-                "rglru_scan": 0, "rms_norm": 0, "rope": 0}
+                "rglru_scan": 0, "rms_norm": 0, "rope": 0, "ssm_step": 8}
     else:
         cfg = get_arch(arch).reduced(n_layers=3, d_model=256, n_heads=10,
                                      n_kv_heads=1, head_dim=256,
                                      lru_width=256, dtype="bfloat16")
         want = {"flash_attention": 1, "decode_attention": 4, "ssd_scan": 0,
-                "rglru_scan": 2, "rms_norm": 12, "rope": 4}
+                "rglru_scan": 2, "rms_norm": 12, "rope": 4, "ssm_step": 0}
     params = T.init_params(cfg, _gen(card, 3), device=card)
     toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=_gen(card, 4),
                          device=card)

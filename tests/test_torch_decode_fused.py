@@ -8,14 +8,17 @@ refuse what the kernels do not take, and the ops refuse DTensors; which
 calls one ``decode_step`` makes of each op, family by family (under
 ``ops.traced``); and that ``decode_step``'s logits and cache equal, bit
 for bit, those of the layer loop written with the plain composition, for
-every family with a decode step.  The kernels themselves run on the card
-(``tests/test_torch_cuda.py``).
+every family with a decode step and for granite-4.0-h-small at tiny widths
+(its SSM layers' state update written out as the lines ``ops.ssm_step``'s
+plain version took over, which updates the state in place).  The kernels
+themselves run on the card (``tests/test_torch_cuda.py``).
 """
 import collections
 import dataclasses
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import get_arch
 from repro_torch.kernels import ops
@@ -214,6 +217,15 @@ def test_fused_ops_refuse_dtensors():
 # ---------------------------------------------------------------------------
 
 def _cfg(arch, dtype="float32"):
+    if arch == "granite-4.0-h-small":
+        # one 10-layer period (attention at layer 5) at tiny widths, as
+        # tests/test_torch_granite.py runs it (``reduced`` would give the
+        # hybrid family a window)
+        return dataclasses.replace(
+            get_arch(arch), n_layers=10, d_model=64, n_heads=4,
+            n_kv_heads=2, head_dim=16, d_ff=24, moe_d_ff=24, shared_d_ff=40,
+            n_experts=8, top_k=3, n_shared_experts=1, vocab_size=257,
+            ssm_state=16, ssm_head_dim=16, ssm_chunk=16, dtype=dtype)
     return get_arch(arch).reduced(n_layers=3, dtype=dtype) \
         if arch == "recurrentgemma-2b" else \
         get_arch(arch).reduced(n_layers=4, dtype=dtype)
@@ -307,9 +319,42 @@ def _plain_attn_step(cfg, p, x, positions, k_cache, v_cache, cache_len):
         p_len = cache_len[:, None]
         slot_mask = (j < p_len) & ((p_len < C) | (j != p_len % C))
     o = attn_lib.decode_attention_merged(q, k_cache, v_cache, valid_old,
-                                         k, v, kv_slot_mask=slot_mask)
+                                         k, v, kv_slot_mask=slot_mask,
+                                         scale=T.attn_scale(cfg))
     x, _ = T.attn_out_ffn(cfg, p, x, o, dropless=True)
     return x, k[:, 0], v[:, 0]
+
+
+def _plain_ssm_step(cfg, p, x, conv_state, ssm_state):
+    """The SSM layer's decode step in the plain composition: the Mamba-2
+    state update as ``mixer_step`` wrote it before ``ops.ssm_step``, a new
+    state returned, then the FFN where the layer has one."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    h = layers.rms_norm(p["norm"], x[:, 0], cfg.norm_eps)
+    zxbcdt = h @ p["in_proj"]
+    z, _, _, _, dt = mamba2._split_in_proj(cfg, zxbcdt)
+    conv_out, conv_new = layers.causal_conv1d_step(
+        p["conv_w"], mamba2._conv_in(cfg, zxbcdt), conv_state,
+        p.get("conv_b"))
+    conv_out = F.silu(conv_out)
+    xs = conv_out[..., :di].reshape(-1, H, P)
+    B = conv_out[..., di:di + N].float()
+    C = conv_out[..., di + N:].float()
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(dt * A)
+    dBx = torch.einsum("bh,bn,bhp->bhpn", dt, B, xs.float())
+    new_state = ssm_state * dA[..., None, None] + dBx
+    y = torch.einsum("bn,bhpn->bhp", C, new_state).to(h.dtype)
+    y = y + p["D_skip"].to(y.dtype)[:, None] * xs
+    y = layers.rms_norm(p["gate_norm"], y.reshape(-1, di) * F.silu(z),
+                        cfg.norm_eps)
+    x = (x[:, 0] + layers.residual_scaled(cfg, y @ p["out_proj"]))[:, None]
+    if "mlp" in p:
+        f, _ = T._ffn(cfg, p["mlp"], T._apply_norm(cfg, p["ln2"], x),
+                      dropless=True)
+        x = x + layers.residual_scaled(cfg, f)
+    return x, conv_new, new_state
 
 
 def _plain_decode_step(cfg, params, batch, cache):
@@ -317,7 +362,8 @@ def _plain_decode_step(cfg, params, batch, cache):
     if "embeds" in batch:
         x = batch["embeds"]
     else:
-        x = params["embed"][batch["tokens"].reshape(-1)][:, None, :]
+        x = T._embed_scaled(cfg, params["embed"][
+            batch["tokens"].reshape(-1)][:, None, :])
     B = x.shape[0]
     pos = cache["pos"].to(torch.int32).contiguous()
     positions = batch["positions"] if "positions" in batch else pos[:, None]
@@ -332,11 +378,9 @@ def _plain_decode_step(cfg, params, batch, cache):
             v_rows.append(vn)
         elif kind == "ssm":
             conv, state = cache["ssm"]["conv"][i], cache["ssm"]["state"][i]
-            y, (conv_new, state_new) = mamba2.ssm_block_step(
-                cfg, p, x[:, 0], conv, state)
+            x, conv_new, state_new = _plain_ssm_step(cfg, p, x, conv, state)
             conv.copy_(conv_new)
             state.copy_(state_new)
-            x = y[:, None]
         else:
             conv, h = cache["rec"]["conv"][i], cache["rec"]["h"][i]
             x, conv_new, h_new = T.rec_layer_step(cfg, p, x, conv, h)
@@ -362,10 +406,13 @@ def _clone(cache):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["pipeboost-opt-1.3b", "qwen3-1.7b",
                                   "qwen2-moe-a2.7b", "recurrentgemma-2b",
-                                  "mamba2-780m", "qwen2-vl-72b"])
+                                  "mamba2-780m", "granite-4.0-h-small",
+                                  "qwen2-vl-72b"])
 def test_decode_step_equals_the_plain_composition(arch, dtype):
     """Three steps from one prefill: logits and every cache leaf bit for
-    bit (recurrentgemma's ring of 32 wraps under its 40-token prompts)."""
+    bit (recurrentgemma's ring of 32 wraps under its 40-token prompts;
+    the SSM states updated in place, where the plain composition makes a
+    new state and copies it)."""
     cfg = dataclasses.replace(_cfg(arch), dtype=dtype)
     params, pre, steps = _inputs(cfg, 3, seed=1)
     _, cache = T.forward(cfg, params, pre, mode="prefill", max_len=64)

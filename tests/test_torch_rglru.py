@@ -143,7 +143,8 @@ def test_rglru_op_runs_plain_on_cpu_and_counts_no_launch(with_h0):
     assert tops.launch_counts() == {"decode_attention": 0,
                                     "flash_attention": 0, "lora_merge": 0,
                                     "ssd_scan": 0, "rglru_scan": 0,
-                                    "rms_norm": 0, "rope": 0}
+                                    "rms_norm": 0, "rope": 0,
+                                    "ssm_step": 0}
 
 
 # ---------------------------------------------------------------------------

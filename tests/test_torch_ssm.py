@@ -137,7 +137,8 @@ def test_ssd_op_runs_plain_on_cpu_and_counts_no_launch(with_state):
     assert tops.launch_counts() == {"decode_attention": 0,
                                     "flash_attention": 0, "lora_merge": 0,
                                     "ssd_scan": 0, "rglru_scan": 0,
-                                    "rms_norm": 0, "rope": 0}
+                                    "rms_norm": 0, "rope": 0,
+                                    "ssm_step": 0}
 
 
 @pytest.mark.parametrize("with_state", [False, True])
