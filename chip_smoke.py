@@ -1505,11 +1505,11 @@ def _relay(torch, ops, S, cfg, params, prompts, has, want, rebuild_kernels,
            strict, out=None):
     """Serve to the cut, zero the state of the layers ``has`` marks lost,
     re-lay the live batch and finish; the streams against ``want``."""
-    from repro_torch.core.kv_reconstruct import _kind_indices
+    from repro_torch.models.transformer import layers
     srv = _server(S, cfg, params)
     reqs = _requests(S, prompts)
     _serve_to_cut(srv, reqs)
-    for gi, (kind, ki, ai) in enumerate(_kind_indices(cfg)):
+    for gi, (kind, ki, ai) in enumerate(layers(cfg)):
         if not has[gi]:
             for t in srv.batcher.cache[kind].values():
                 t[ai if kind == "attn" else ki].zero_()

@@ -16,11 +16,16 @@ a per-layer "has state" mask, rebuild the missing per-layer caches:
     than the sequence): the evicted positions cannot be reused, so the
     layer's activations are recomputed in full while the surviving ring is
     kept;
-  * attention layers WITHOUT K/V: the layer runs in full and writes its
-    K/V into its cache slice in place (``attn_layer_fwd(kv_write=...)``);
+  * attention layers WITHOUT K/V: the layer runs in full and its K/V are
+    written into its cache slice in place;
   * SSM and RG-LRU layers WITHOUT state: a full re-scan (the SSD or RG-LRU
     kernel) whose final state is written in place; layers WITH state are
     run for their activations and keep their state.
+
+Every full layer is the model's own (``transformer.layer_fwd``, its states
+written by ``transformer.place_states``), so the rebuild runs what the
+prefill ran: a granite-4.0-h SSM layer's MoE FFN, an attention layer's
+score scale.
 
 Reconstruction stops at the deepest missing layer: every layer above it
 kept its state.  The cache passed in is updated in place (the analogue of
@@ -29,13 +34,13 @@ is rebuilt where the batcher's captured decode graph reads it.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import transformer
 
 STAT_KEYS = ("layers_recomputed", "kv_reused", "full_prefill",
              "window_recompute", "layers_skipped",
@@ -43,24 +48,6 @@ STAT_KEYS = ("layers_recomputed", "kv_reused", "full_prefill",
              # recomputed), and positions run through a full layer forward
              # (missing layers and wrapped-ring recomputes)
              "q_only_tokens", "prefill_tokens")
-
-
-def _kind_indices(cfg) -> List[Tuple[str, int, int]]:
-    """[(kind, index within kind, index within the attention cache
-    stack), ...] in global layer order (-1 for layers without K/V).  attn
-    and moe share the 'attn' cache stack."""
-    out = []
-    per_kind: Dict[str, int] = {}
-    attnlike = 0
-    for kind in cfg.layer_kinds():
-        i = per_kind.get(kind, 0)
-        per_kind[kind] = i + 1
-        if kind in ("attn", "moe"):
-            out.append((kind, i, attnlike))
-            attnlike += 1
-        else:
-            out.append((kind, i, -1))
-    return out
 
 
 def reconstruct_cache(cfg: ArchConfig, params, batch: Dict, cache: Dict,
@@ -74,46 +61,39 @@ def reconstruct_cache(cfg: ArchConfig, params, batch: Dict, cache: Dict,
     the work done (the reference's keys and values); ``cache["pos"]``
     becomes S.  The rebuilt cache equals a fresh prefill's up to float
     rounding."""
-    kinds = _kind_indices(cfg)
-    if len(has_state) != len(kinds):
+    walk = transformer.layers(cfg)
+    if len(has_state) != len(walk):
         raise ValueError(f"has_state has {len(has_state)} entries for "
-                         f"{len(kinds)} layers")
+                         f"{len(walk)} layers")
     x, positions = transformer.embed_tokens(cfg, params, batch)
     B, S = x.shape[:2]
-    cap = transformer.attn_cache_capacity(cfg, max_len or S)
+    # a wrapped ring (a windowed cache shorter than the sequence) has lost
+    # the evicted positions: a surviving ring stays (it is exact for
+    # decode) and its layer's activations are recomputed in full
+    wrapped = cfg.attn_window > 0 and \
+        S > transformer.attn_cache_capacity(cfg, max_len or S)
     deepest_missing = max((i for i, h in enumerate(has_state) if not h),
                           default=-1)
     stats = {k: 0 for k in STAT_KEYS}
-    for gi, (kind, ki, ai) in enumerate(kinds):
+    for gi, layer in enumerate(walk):
         if gi > deepest_missing:
-            stats["layers_skipped"] += len(kinds) - gi
+            stats["layers_skipped"] += len(walk) - gi
             break
+        kind, ki, ai = layer
         p = transformer.layer_params(params["blocks"][kind], ki)
-        if kind in ("attn", "moe"):
-            kc, vc = cache["attn"]["k"][ai], cache["attn"]["v"][ai]
-            if has_state[gi] and cfg.attn_window > 0 and S > cap:
-                # wrapped ring: the surviving ring stays (it is exact for
-                # decode); the activations are recomputed for deeper layers
-                x, _, _ = transformer.attn_layer_fwd(cfg, p, x, positions)
-                stats["window_recompute"] += 1
-                stats["prefill_tokens"] += S
-            elif has_state[gi]:
-                x = _q_only_layer(cfg, p, x, positions, kc, vc)
-                stats["kv_reused"] += 1
-                stats["q_only_tokens"] += S
-            else:
-                x, _, _ = transformer.attn_layer_fwd(cfg, p, x, positions,
-                                                     kv_write=(kc, vc))
-                stats["full_prefill"] += 1
-                stats["prefill_tokens"] += S
+        if has_state[gi] and ai >= 0 and not wrapped:
+            x = _q_only_layer(cfg, p, x, positions, cache["attn"]["k"][ai],
+                              cache["attn"]["v"][ai])
+            stats["kv_reused"] += 1
+            stats["q_only_tokens"] += S
         else:
-            fwd = (mamba2.ssm_block_fwd if kind == "ssm"
-                   else transformer.rec_layer_fwd)
-            x, states = fwd(cfg, p, x)
-            if not has_state[gi]:       # leaves in the order fwd returns
-                for leaf, st in zip(cache[kind], states):
-                    cache[kind][leaf][ki].copy_(st)
+            x, states, _ = transformer.layer_fwd(cfg, kind, p, x, positions)
+            if not has_state[gi]:
+                transformer.place_states(cache, layer, states, clear=True)
                 stats["full_prefill"] += 1
+                stats["prefill_tokens"] += S
+            elif ai >= 0:
+                stats["window_recompute"] += 1
                 stats["prefill_tokens"] += S
         stats["layers_recomputed"] += 1
     pos = cache["pos"]
@@ -127,19 +107,17 @@ def reconstruct_cache(cfg: ArchConfig, params, batch: Dict, cache: Dict,
 
 
 def _q_only_layer(cfg, p, x, positions, kc, vc):
-    """One attention layer whose K/V survived: Q is projected and attends
-    the cache's first S rows (K/V projections skipped), then the output
-    projection and the FFN as in ``attn_layer_fwd``."""
+    """One attention layer whose K/V survived: Q alone is projected
+    (``transformer.attn_qkv(kv=False)``) and attends the cache's first S
+    rows, then the output projection and the FFN as in a full layer."""
     S = x.shape[1]
-    h = transformer._apply_norm(cfg, p["ln1"], x)
-    q = transformer.rope(cfg, transformer.project_q(cfg, p, h), positions)
+    q, _, _ = transformer.attn_qkv(cfg, p, x, positions, kv=False)
     if cfg.attn_window > 0 and not q.is_cuda:
         o = _windowed_ring_attention(cfg, q, kc, vc, S)
     else:
-        # causal from key 0 (S <= cap on a windowed layer: slot j holds
-        # position j), the flash kernel reading the cache's strides
-        o = attn_lib.attention(q, kc[:, :S], vc[:, :S], causal=True,
-                               window=cfg.attn_window)
+        # from key 0 (S <= cap on a windowed layer: slot j holds position
+        # j), the flash kernel reading the cache's strides
+        o = transformer.attend(cfg, q, kc[:, :S], vc[:, :S])
     return transformer.attn_out_ffn(cfg, p, x, o)[0]
 
 
@@ -155,7 +133,8 @@ def _windowed_ring_attention(cfg, q, kc, vc, S):
     cap, Hkv = kc.shape[1], kc.shape[2]
     S = q.shape[1]
     ring = _ring_slot_positions(S, cap, q.device)
-    qf = (q.float() * hd ** -0.5).reshape(B, S, Hkv, Hq // Hkv, hd)
+    scale = transformer.attn_scale(cfg) or hd ** -0.5
+    qf = (q.float() * scale).reshape(B, S, Hkv, Hq // Hkv, hd)
     s = torch.einsum("bqkgd,bckd->bqkgc", qf, kc.float())
     q_pos = torch.arange(S, device=q.device)
     ok = (ring[None, :] <= q_pos[:, None]) & \

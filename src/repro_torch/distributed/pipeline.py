@@ -20,18 +20,19 @@ CPU the same loop runs in order.  Off-belt stages do nothing (the
 reference's compute on a zeros belt is an SPMD artefact whose results it
 discards).
 
-The layers are the model's own (``transformer.attn_layer_fwd``,
-``mamba2.ssm_block_fwd``), so every attention or MoE stage runs the flash
-kernel and every SSM stage the SSD scan on the card.  An MoE layer routes
-the tokens of the block it is given: each microbatch (GPipe) or chunk
-(sequence-chunk belt) has its own routing and capacity, exactly as the
-reference's belts compute them, so where capacity binds the belt's result
-differs from ``forward``'s over the whole batch.  With ``return_cache=True``
-each stage writes its layers' state straight into a cache of
-``transformer.init_cache``'s layout, at its layer range and the
-microbatch's rows: the same keys, shapes and dtypes as
-``forward(mode="prefill")`` returns, so the serving batcher's scatter and
-its captured decode step take it as it is.
+The layers are the model's own (``transformer.layer_fwd``; the
+sequence-chunk belt's from ``transformer.attn_qkv`` and ``attend``), so
+every attention or MoE stage runs the flash kernel and every SSM stage the
+SSD scan on the card.  An MoE layer routes the tokens of the block it is
+given: each microbatch (GPipe) or chunk (sequence-chunk belt) has its own
+routing and capacity, exactly as the reference's belts compute them, so
+where capacity binds the belt's result differs from ``forward``'s over the
+whole batch.  With ``return_cache=True`` each stage writes its layers'
+state straight into a cache of ``transformer.init_cache``'s layout, at its
+layer range and the microbatch's rows (``transformer.place_states``): the
+same keys, shapes and dtypes as ``forward(mode="prefill")`` returns, so
+the serving batcher's scatter and its captured decode step take it as it
+is.
 
 Uniform layer stacks only: the hybrid pattern is refused, as the reference
 refuses it.
@@ -45,8 +46,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.models import attention as attn_lib
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import transformer
 
 Lane = Tuple[int, int]          # (data row, stage)
 
@@ -204,7 +204,7 @@ def _head(cfg: ArchConfig, params, x_last: torch.Tensor) -> torch.Tensor:
     head = {"embed": params["embed"].to(dev)}
     if not cfg.tie_embeddings:
         head["lm_head"] = params["lm_head"].to(dev)
-    xl = transformer._apply_norm(cfg, _to(params["final_norm"], dev), x_last)
+    xl = transformer.apply_norm(cfg, _to(params["final_norm"], dev), x_last)
     return transformer.unembed(cfg, head, xl)[:, 0]
 
 
@@ -279,6 +279,7 @@ def build_pipeline_prefill(cfg: ArchConfig, *, n_stages: int, n_micro: int,
         lanes.start()
         per = cfg.n_layers // n_stages
         layers = _stage_layers(params, kind, per, mesh)
+        walk = transformer.layers(cfg)
         recv: Dict[Lane, torch.Tensor] = {}
         positions: Dict[Lane, torch.Tensor] = {}
         for lane in layers:
@@ -298,19 +299,11 @@ def build_pipeline_prefill(cfg: ArchConfig, *, n_stages: int, n_micro: int,
             x = (_stage0_input(batch, embed0[d], rows, slice(None), dev)
                  if s == 0 else recv[lane])
             for j, p in enumerate(layers[lane]):
-                i = s * per + j
-                if kind == "ssm":
-                    x, states = mamba2.ssm_block_fwd(cfg, p, x)
-                    if cache is not None:   # leaves in the block's order
-                        for leaf, st in zip(cache["ssm"], states):
-                            cache["ssm"][leaf][i, rows].copy_(st)
-                else:
-                    x, kv, _ = transformer.attn_layer_fwd(cfg, p, x,
-                                                          positions[lane])
-                    if cache is not None:   # into the zeroed cache
-                        for leaf, t in zip(("k", "v"), kv):
-                            dst = cache["attn"][leaf][i, rows]
-                            transformer._place_kv(dst, t, dst.shape[1])
+                x, states, _ = transformer.layer_fwd(cfg, kind, p, x,
+                                                     positions[lane])
+                if cache is not None:       # into the zeroed cache
+                    transformer.place_states(cache, walk[s * per + j],
+                                             states, rows)
             if s < n_stages - 1:
                 return x
             if last_index is not None:
@@ -368,13 +361,11 @@ def _attn_layer_chunk(cfg: ArchConfig, p, x, positions, k_buf, v_buf,
     of them (the flash kernel with ``q_offset``, Sk > Sq).  An MoE FFN
     routes the chunk's tokens with the chunk's capacity."""
     end = q_off + x.shape[1]
-    h = transformer._apply_norm(cfg, p["ln1"], x)
-    q, k, v = transformer._project_qkv(cfg, p, h)
-    q = transformer.rope(cfg, q, positions)
-    k_buf[:, q_off:end] = transformer.rope(cfg, k, positions)
+    q, k, v = transformer.attn_qkv(cfg, p, x, positions)
+    k_buf[:, q_off:end] = k
     v_buf[:, q_off:end] = v
-    o = attn_lib.attention(q, k_buf[:, :end], v_buf[:, :end], causal=True,
-                           window=cfg.attn_window, q_offset=q_off)
+    o = transformer.attend(cfg, q, k_buf[:, :end], v_buf[:, :end],
+                           q_offset=q_off)
     return transformer.attn_out_ffn(cfg, p, x, o)[0]
 
 

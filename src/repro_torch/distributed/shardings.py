@@ -340,7 +340,7 @@ _REGISTERED = [False]
 def register_strategies() -> None:
     """Sharding strategies DTensor lacks for ops of the step, registered
     once a process: ``mm`` with an ``out_dtype`` (the unembedding's bf16
-    product into float32 logits, ``transformer._Float32Product``) shards
+    product into float32 logits in ``transformer.unembed``) shards
     by rows or by columns, never whole or partial on a device (DTensor's
     choice does not weigh the output: whole or partial (T, V) float32
     logits would be tens of GB a device)."""

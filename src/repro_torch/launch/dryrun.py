@@ -1054,16 +1054,12 @@ def _run_pipeline_cell(cfg: ArchConfig, arch: str, shape_name: str,
 
 def _stage_forward(cfg: ArchConfig, params, x):
     """One belt stage's work on one microbatch: its layers in order."""
-    from repro_torch.models import mamba2
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :].expand(
         x.shape[0], S)
-    for kind, i, a in transformer._layers(cfg):
+    for kind, i, _ in transformer.layers(cfg):
         p = transformer.layer_params(params["blocks"][kind], i)
-        if a >= 0:
-            x = transformer.attn_layer_fwd(cfg, p, x, positions)[0]
-        else:
-            x = mamba2.ssm_block_fwd(cfg, p, x)[0]
+        x = transformer.layer_fwd(cfg, kind, p, x, positions)[0]
     return x
 
 

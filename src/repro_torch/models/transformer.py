@@ -10,9 +10,11 @@ shape ``(L_kind, ...)``.  Caches keep the reference's leaves: attention
 ``conv`` ``(L, B, K-1, d_inner+2N)`` in the model dtype and ``state``
 ``(L, B, H, P, N)`` in float32; recurrent ``conv`` ``(L, B, K-1, W)`` in
 the model dtype and ``h`` ``(L, B, W)`` in float32.  The layer stack runs
-as a Python loop over the runs of equal kinds (eager PyTorch has no
-``scan`` to compile); a hybrid pattern such as ``rec, rec, attn`` becomes
-several short runs.
+as a Python loop over ``layers(cfg)`` (eager PyTorch has no ``scan`` to
+compile).  A full-sequence layer of any kind is ``layer_fwd`` and its
+states land in the cache through ``place_states``: the prefill, the train
+forward, recovery (``core/kv_reconstruct.py``), the pipeline belt and the
+dry run all walk the layers this way.
 
 Entry points:
   * ``forward(..., mode="train")``   -> (logits (B,S,V) f32, aux)
@@ -55,7 +57,7 @@ leaves), attends non-causally and has no decode step.  M-RoPE models take
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -104,7 +106,7 @@ def _norm_init(cfg: ArchConfig, L: int, dtype, device):
     return ones
 
 
-def _apply_norm(cfg: ArchConfig, w, x):
+def apply_norm(cfg: ArchConfig, w, x):
     if cfg.family == "audio":
         return layer_norm(w, x, cfg.norm_eps)
     return rms_norm(w, x, cfg.norm_eps)
@@ -271,14 +273,13 @@ def attn_out_ffn(cfg, p, x, o, *, dropless: bool = False):
     the FFN.  Returns (x, aux)."""
     x = constrain(x + residual_scaled(
         cfg, project(o.reshape(*x.shape[:2], -1), p["wo"])), "act")
-    y, aux = _ffn(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x),
+    y, aux = _ffn(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
                   dropless=dropless)
     return constrain(x + residual_scaled(cfg, y), "act"), aux
 
 
-def project_q(cfg, p, h):
-    """The query projection alone (B, S, Hq, hd), before rope: what the
-    Q-only recompute of a layer whose K/V survived needs."""
+def _project_q(cfg, p, h):
+    """The query projection alone (B, S, Hq, hd), before rope."""
     B, S, _ = h.shape
     q = project(h, p["wq"])
     if cfg.qkv_bias:
@@ -292,7 +293,7 @@ def project_q(cfg, p, h):
 def _project_qkv(cfg, p, h):
     B, S, _ = h.shape
     hd = cfg.resolved_head_dim
-    q = project_q(cfg, p, h)
+    q = _project_q(cfg, p, h)
     k = project(h, p["wk"])
     v = project(h, p["wv"])
     if cfg.qkv_bias:
@@ -315,29 +316,38 @@ def rope(cfg, x, positions):
     return apply_rope(x, positions, cfg.rope_theta)
 
 
-def attn_layer_fwd(cfg, p, x, positions, *, kv_write=None):
-    """Full-sequence attention layer (prefill attention runs the flash
-    kernel, causal or not as the config says; an MoE layer's FFN takes
-    the capacity path).  Returns (x, (k, v), aux) with the roped k/v (B,
-    S, Hkv, hd) that ``forward`` places into the cache and the MoE load
-    balance loss (None for a dense FFN).
-
-    ``kv_write`` (k_dst, v_dst): this layer's cache slices (B, cap, Hkv,
-    hd), written in place with the roped k/v as a prefill lays them out
-    (the ring's tail when the sequence is longer than the slice, zeros past
-    a shorter one) — the reference's ``kv_write=cap``, which the full-layer
-    recompute of ``core.kv_reconstruct`` uses."""
-    h = _apply_norm(cfg, p["ln1"], x)
+def attn_qkv(cfg, p, x, positions, *, kv: bool = True):
+    """The pre-attention half of an attention layer over x (B, S, D): the
+    first norm, the projections (with their biases and qk-norm) and RoPE.
+    Returns the roped (q, k, v), (B, S, H, hd) each.  ``kv`` False: q
+    alone, with no K/V projection, as (q, None, None) (the Q-only
+    recompute of a layer whose K/V survived)."""
+    h = apply_norm(cfg, p["ln1"], x)
+    if not kv:
+        q = _project_q(cfg, p, h)
+        return constrain(rope(cfg, q, positions), "heads"), None, None
     q, k, v = _project_qkv(cfg, p, h)
-    q = constrain(rope(cfg, q, positions), "heads")
-    k = constrain(rope(cfg, k, positions), "heads")
-    v = constrain(v, "heads")
-    o = attn_lib.attention(q, k, v, causal=cfg.causal,
-                           window=cfg.attn_window, scale=attn_scale(cfg))
-    if kv_write is not None:
-        for dst, t in zip(kv_write, (k, v)):
-            _place_kv(dst, t, dst.shape[1], clear=True)
-    x, aux = attn_out_ffn(cfg, p, x, o)
+    return (constrain(rope(cfg, q, positions), "heads"),
+            constrain(rope(cfg, k, positions), "heads"),
+            constrain(v, "heads"))
+
+
+def attend(cfg, q, k, v, *, q_offset: int = 0):
+    """Full-sequence attention (the flash kernel) at the config's
+    causality, window and score scale; keys from position 0, queries from
+    ``q_offset``."""
+    return attn_lib.attention(q, k, v, causal=cfg.causal,
+                              window=cfg.attn_window, q_offset=q_offset,
+                              scale=attn_scale(cfg))
+
+
+def attn_layer_fwd(cfg, p, x, positions):
+    """Full-sequence attention layer: ``attn_qkv``, ``attend`` and
+    ``attn_out_ffn`` (an MoE layer's FFN takes the capacity path).
+    Returns (x, (k, v), aux) with the roped k/v (B, S, Hkv, hd) and the
+    MoE load balance loss (None for a dense FFN)."""
+    q, k, v = attn_qkv(cfg, p, x, positions)
+    x, aux = attn_out_ffn(cfg, p, x, attend(cfg, q, k, v))
     return x, (k, v), aux
 
 
@@ -347,13 +357,13 @@ def attn_scale(cfg) -> Optional[float]:
     return cfg.attention_multiplier or None
 
 
-def _place_kv(dst, kv, cap: int, *, clear: bool = False) -> None:
+def _place_kv(dst, kv, *, clear: bool = False) -> None:
     """Write a prompt's k or v (B, S, Hkv, hd) into a cache slice (B, cap,
     Hkv, hd), zeroed already unless ``clear`` asks to zero the slots past
     the prompt.  A ring buffer smaller than the prompt keeps the tail,
     rolled so that slot j holds the position p with p % cap == j (decode
     writes at pos % cap, so the oldest entry is overwritten)."""
-    S = kv.shape[1]
+    S, cap = kv.shape[1], dst.shape[1]
     if cap >= S:
         dst[:, :S] = kv
         if clear:
@@ -380,7 +390,7 @@ def attn_layer_step(cfg, p, x, positions, k_cache, v_cache, valid_old,
     if fused:
         h = ops.rms_norm(x, p["ln1"], cfg.norm_eps)
     else:
-        h = _apply_norm(cfg, p["ln1"], x)
+        h = apply_norm(cfg, p["ln1"], x)
     q, k, v = _project_qkv(cfg, p, h)
     if inv_freq is not None:
         q, k = ops.rope_qk(q, k, positions, inv_freq)
@@ -425,7 +435,7 @@ def ssm_layer_fwd(cfg, p, x, *, conv_state=None, ssm_state=None):
     x, states = mamba2.ssm_block_fwd(cfg, p, x, conv_state=conv_state,
                                      ssm_state=ssm_state)
     if "mlp" in p:
-        y, _ = _ffn(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+        y, _ = _ffn(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
         x = constrain(x + residual_scaled(cfg, y), "act")
     return x, states
 
@@ -439,7 +449,7 @@ def ssm_layer_step(cfg, p, x, conv_state, ssm_state):
                                                ssm_state)
     x = y[:, None]
     if "mlp" in p:
-        f, _ = _ffn(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x),
+        f, _ = _ffn(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
                     dropless=True)
         x = x + residual_scaled(cfg, f)
     return x, conv_s, state
@@ -448,23 +458,56 @@ def ssm_layer_step(cfg, p, x, conv_state, ssm_state):
 def rec_layer_fwd(cfg, p, x, *, conv_state=None, h0=None):
     """Full-sequence recurrent layer (its scan runs the RG-LRU kernel).
     Returns (x, (conv_state, h_last))."""
-    h = _apply_norm(cfg, p["ln1"], x)
+    h = apply_norm(cfg, p["ln1"], x)
     y, state = rglru.rec_block_fwd(cfg, p["rec"], h, conv_state=conv_state,
                                    h0=h0)
     x = constrain(x + y, "act")
-    h2 = _apply_norm(cfg, p["ln2"], x)
+    h2 = apply_norm(cfg, p["ln2"], x)
     return constrain(x + _apply_mlp(cfg, p["mlp"], h2), "act"), state
 
 
 def rec_layer_step(cfg, p, x, conv_state, h):
     """Single-token recurrent layer. x: (B, 1, D); h: (B, W) float32.
     Returns (x, conv_state, h_new)."""
-    hin = _apply_norm(cfg, p["ln1"], x)
+    hin = apply_norm(cfg, p["ln1"], x)
     y, (conv_s, h_new) = rglru.rec_block_step(cfg, p["rec"], hin[:, 0],
                                               conv_state, h)
     x = x + y[:, None]
-    h2 = _apply_norm(cfg, p["ln2"], x)
+    h2 = apply_norm(cfg, p["ln2"], x)
     return x + _apply_mlp(cfg, p["mlp"], h2), conv_s, h_new
+
+
+def layer_fwd(cfg, kind, p, x, positions):
+    """One full-sequence layer of kind ``kind`` over x (B, S, D): (x,
+    states, aux).  ``states`` are the layer's new cache leaves in the
+    cache's leaf order (attention and MoE layers: the roped k, v (B, S,
+    Hkv, hd); SSM: conv, state; recurrent: conv, h), which
+    ``place_states`` writes; ``aux`` is an attention layer's MoE load
+    balance loss, else None."""
+    if kind in ("attn", "moe"):
+        return attn_layer_fwd(cfg, p, x, positions)
+    fwd = ssm_layer_fwd if kind == "ssm" else rec_layer_fwd
+    x, states = fwd(cfg, p, x)
+    return x, states, None
+
+
+def place_states(cache, layer, states, rows=None, *,
+                 clear: bool = False) -> None:
+    """Write ``layer_fwd``'s ``states`` of ``layer`` (an entry of
+    ``layers``) into ``cache`` in place, at ``rows`` of its batch (all
+    when None): K/V as a prefill lays them out (``_place_kv``; ``clear``
+    zeroes the slots past the sequence), SSM and recurrent states whole.
+    ``cache`` may be a view of some slots of a larger one."""
+    kind, i, a = layer
+    at = a if a >= 0 else i
+    if rows is not None:
+        at = (at, rows)
+    if a >= 0:
+        for leaf, t in zip(("k", "v"), states):
+            _place_kv(cache["attn"][leaf][at], t, clear=clear)
+    else:       # leaves in the order the layer returns them
+        for dst, t in zip(cache[kind].values(), states):
+            dst[at].copy_(t)
 
 
 # ---------------------------------------------------------------------------
@@ -532,33 +575,22 @@ def unembed(cfg, params, x) -> torch.Tensor:
     return y if cfg.logits_scaling == 1.0 else y / cfg.logits_scaling
 
 
-def _kind_runs(kinds: List[str]) -> List[Tuple[str, int]]:
-    """Maximal runs of equal consecutive layer kinds, in order (a hybrid
-    pattern becomes several short runs)."""
-    runs: List[List] = []
-    for k in kinds:
-        if runs and runs[-1][0] == k:
-            runs[-1][1] += 1
-        else:
-            runs.append([k, 1])
-    return [(k, n) for k, n in runs]
-
-
-def _layers(cfg: ArchConfig) -> Iterator[Tuple[str, int, int]]:
+def layers(cfg: ArchConfig) -> List[Tuple[str, int, int]]:
     """(kind, index in that kind's stack, index in the ``attn`` cache
-    stack or -1) of every layer, in model order, walking the runs of
-    ``_kind_runs``.  attn and moe layers share the ``attn`` cache stack."""
-    cursor: Dict[str, int] = {}
+    stack or -1) of every layer, in model order.  attn and moe layers
+    share the ``attn`` cache stack."""
+    out: List[Tuple[str, int, int]] = []
+    seen: Dict[str, int] = {}
     attnlike = 0
-    for kind, count in _kind_runs(cfg.layer_kinds()):
-        start = cursor.get(kind, 0)
-        cursor[kind] = start + count
-        for i in range(start, start + count):
-            if kind in ("attn", "moe"):
-                yield kind, i, attnlike
-                attnlike += 1
-            else:
-                yield kind, i, -1
+    for kind in cfg.layer_kinds():
+        i = seen.get(kind, 0)
+        seen[kind] = i + 1
+        if kind in ("attn", "moe"):
+            out.append((kind, i, attnlike))
+            attnlike += 1
+        else:
+            out.append((kind, i, -1))
+    return out
 
 
 def _unstack(stacked: Params, n: int) -> List[Params]:
@@ -577,14 +609,10 @@ def _unstack(stacked: Params, n: int) -> List[Params]:
 def _train_layer(cfg, kind, p, x, positions):
     """One layer of a train forward: (x, aux), aux a float32 scalar (0
     for a layer without a router)."""
-    if kind in ("attn", "moe"):
-        x, _, aux = attn_layer_fwd(cfg, p, x, positions)
-        if aux is None:
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return x, aux
-    fwd = ssm_layer_fwd if kind == "ssm" else rec_layer_fwd
-    x, _ = fwd(cfg, p, x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, _, aux = layer_fwd(cfg, kind, p, x, positions)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
@@ -621,7 +649,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         per_layer = {kind: _unstack(params["blocks"][kind], n)
                      for kind, n in kind_counts(cfg).items()}
-        for kind, i, _ in _layers(cfg):
+        for kind, i, _ in layers(cfg):
             p = per_layer[kind][i]
             if remat:
                 x, aux = torch.utils.checkpoint.checkpoint(
@@ -630,25 +658,17 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict, *,
             else:
                 x, aux = _train_layer(cfg, kind, p, x, positions)
             aux_total = aux_total + aux
-        x = _apply_norm(cfg, params["final_norm"], x)
+        x = apply_norm(cfg, params["final_norm"], x)
         return unembed(cfg, params, x), aux_total
 
-    cap = attn_cache_capacity(cfg, max_len or S)
     # the prompt's states, written layer by layer (pos is set at the end)
     cache: Cache = init_cache(cfg, B, max_len or S, x.dtype, x.device)
-    for kind, i, a in _layers(cfg):
+    for layer in layers(cfg):
+        kind, i, _ = layer
         p = layer_params(params["blocks"][kind], i)
-        if a >= 0:
-            x, (k, v), _ = attn_layer_fwd(cfg, p, x, positions)
-            _place_kv(cache["attn"]["k"][a], k, cap)
-            _place_kv(cache["attn"]["v"][a], v, cap)
-        else:
-            fwd = ssm_layer_fwd if kind == "ssm" else rec_layer_fwd
-            x, states = fwd(cfg, p, x)
-            # leaves in the order the block returns
-            for leaf, st in zip(cache[kind], states):
-                cache[kind][leaf][i].copy_(st)
-    x = _apply_norm(cfg, params["final_norm"], x)
+        x, states, _ = layer_fwd(cfg, kind, p, x, positions)
+        place_states(cache, layer, states)
+    x = apply_norm(cfg, params["final_norm"], x)
 
     if last_index is not None:
         li = torch.as_tensor(last_index, dtype=torch.int32, device=x.device)
@@ -699,7 +719,7 @@ def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
                                        cfg.rope_theta, x.device)
             positions = positions.reshape(B).to(torch.int32).contiguous()
     k_rows, v_rows = [], []
-    for kind, i, a in _layers(cfg):
+    for kind, i, a in layers(cfg):
         p = layer_params(params["blocks"][kind], i)
         if a >= 0:
             x, kn, vn = attn_layer_step(cfg, p, x, positions,
@@ -729,7 +749,7 @@ def decode_step(cfg: ArchConfig, params: Params, batch: Dict,
     if fused:
         x = ops.rms_norm(x, params["final_norm"], cfg.norm_eps)
     else:
-        x = _apply_norm(cfg, params["final_norm"], x)
+        x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params, x)[:, 0, :]
     if cache["pos"] is pos:
         pos.add_(1)

@@ -819,7 +819,6 @@ def test_decode_compiles_stays_one_through_recovery(card):
     eager run's (in float32: a rebuild recomputes the lost layers in
     another sum order than the decode steps that wrote them)."""
     import numpy as np
-    from repro_torch.core.kv_reconstruct import _kind_indices
     from repro_torch.lora.adapters import init_lora, merge_lora, \
         randomize_lora
     cfg = _small("qwen3-1.7b", dtype="float32")
@@ -845,7 +844,7 @@ def test_decode_compiles_stays_one_through_recovery(card):
     assert len(srv.admit_with_state_batch(drained[1:])) == 2
     srv.step()
     lost = [False, True, True, False]
-    for gi, (kind, ki, ai) in enumerate(_kind_indices(cfg)):
+    for gi, (kind, ki, ai) in enumerate(T.layers(cfg)):
         if lost[gi]:
             for t in srv.batcher.cache[kind].values():
                 t[ai].zero_()
@@ -879,12 +878,18 @@ def test_windowed_q_only_on_flash_matches_ring(card):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "mamba2-780m",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "granite-4.0-h-small"])
 def test_rebuild_on_the_card_matches_fresh_prefill(card, arch):
     """``reconstruct_cache`` through the kernels (flash on the surviving
-    cache's strides, the scans) against a fresh prefill, in float32."""
+    cache's strides, the scans) against a fresh prefill, in float32.
+    granite (one 10-layer period, attention at 5) loses Mamba-2 layers 3
+    and 7: they are rebuilt with their MoE FFN, and the attention layer
+    between them Q-only at its 1/128 score scale."""
     from repro_torch.core import kv_reconstruct as R
-    cfg = _small(arch, dtype="float32")
+    if arch == "granite-4.0-h-small":
+        cfg, lost = _granite("float32", n_layers=10), (3, 7)
+    else:
+        cfg, lost = _small(arch, dtype="float32"), (1, 3)
     params = T.init_params(cfg, _gen(card, 3), device=card)
     toks = torch.randint(0, cfg.vocab_size, (2, 28), generator=_gen(card, 4),
                          device=card)
@@ -893,11 +898,11 @@ def test_rebuild_on_the_card_matches_fresh_prefill(card, arch):
     damaged = {k: ({l: t.clone() for l, t in v.items()}
                    if isinstance(v, dict) else v.clone())
                for k, v in fresh.items()}
-    has = [True, False, True, False] + [True] * (cfg.n_layers - 4)
-    for gi, (kind, ki, ai) in enumerate(R._kind_indices(cfg)):
+    has = [i not in lost for i in range(cfg.n_layers)]
+    for gi, (kind, ki, ai) in enumerate(T.layers(cfg)):
         if not has[gi]:
-            for t in damaged[kind].values():
-                t[ai if kind == "attn" else ki].zero_()
+            for t in damaged["attn" if ai >= 0 else kind].values():
+                t[ai if ai >= 0 else ki].zero_()
     ops.reset_launch_counts()
     R.reconstruct_cache(cfg, params, {"tokens": toks}, damaged, has,
                         max_len=64)

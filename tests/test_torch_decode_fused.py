@@ -307,7 +307,7 @@ def test_opt_decode_step_at_its_depth_and_slots():
 
 def _plain_attn_step(cfg, p, x, positions, k_cache, v_cache, cache_len):
     """The attention layer's decode step in the plain composition."""
-    h = T._apply_norm(cfg, p["ln1"], x)
+    h = T.apply_norm(cfg, p["ln1"], x)
     q, k, v = T._project_qkv(cfg, p, h)
     q = T.rope(cfg, q, positions)
     k = T.rope(cfg, k, positions)
@@ -351,7 +351,7 @@ def _plain_ssm_step(cfg, p, x, conv_state, ssm_state):
                         cfg.norm_eps)
     x = (x[:, 0] + layers.residual_scaled(cfg, y @ p["out_proj"]))[:, None]
     if "mlp" in p:
-        f, _ = T._ffn(cfg, p["mlp"], T._apply_norm(cfg, p["ln2"], x),
+        f, _ = T._ffn(cfg, p["mlp"], T.apply_norm(cfg, p["ln2"], x),
                       dropless=True)
         x = x + layers.residual_scaled(cfg, f)
     return x, conv_new, new_state
@@ -368,7 +368,7 @@ def _plain_decode_step(cfg, params, batch, cache):
     pos = cache["pos"].to(torch.int32).contiguous()
     positions = batch["positions"] if "positions" in batch else pos[:, None]
     k_rows, v_rows = [], []
-    for kind, i, a in T._layers(cfg):
+    for kind, i, a in T.layers(cfg):
         p = T.layer_params(params["blocks"][kind], i)
         if a >= 0:
             x, kn, vn = _plain_attn_step(cfg, p, x, positions,
@@ -392,7 +392,7 @@ def _plain_decode_step(cfg, params, batch, cache):
         bidx = torch.arange(B)
         kc[:, bidx, slot] = torch.stack(k_rows)
         vc[:, bidx, slot] = torch.stack(v_rows)
-    x = T._apply_norm(cfg, params["final_norm"], x)
+    x = T.apply_norm(cfg, params["final_norm"], x)
     logits = T.unembed(cfg, params, x)[:, 0, :]
     pos.add_(1)
     return logits, cache

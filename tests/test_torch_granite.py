@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.configs.base import get_arch
+from repro_torch.core.kv_reconstruct import reconstruct_cache
 from repro_torch.models import moe, transformer
 from repro_torch.reference import granite_hybrid as ref
 from repro_torch.serving.engine import (ContinuousBatcher, ServeRequest,
@@ -268,3 +269,80 @@ def test_the_batcher_records_its_cache_and_each_prefill(params):
     assert (pre.rows, pre.tokens, pre.dropped) == (1, 20, 0)
     assert pre.state_bytes == (rec.conv + rec.ssm) // 3
     TRACER.clear()
+
+
+def _wiped(cache, lost):
+    """A copy of ``cache`` with the state of the layers in ``lost``
+    zeroed."""
+    out = {k: ({leaf: t.clone() for leaf, t in v.items()}
+               if isinstance(v, dict) else v.clone())
+           for k, v in cache.items()}
+    _wipe(out, lost)
+    return out
+
+
+def _wipe(cache, lost):
+    """Zero, in place, the state of the layers in ``lost`` in every slot
+    of ``cache``."""
+    for gi, (kind, ki, ai) in enumerate(transformer.layers(CFG)):
+        if gi in lost:
+            for t in cache["attn" if ai >= 0 else kind].values():
+                t[ai if ai >= 0 else ki] = 0
+
+
+@pytest.mark.parametrize("lost", [{5}, {7}, {3, 5}],
+                         ids=["5", "7", "3-5"])
+def test_the_rebuild_of_lost_layers_equals_a_fresh_prefill(params, lost):
+    """``reconstruct_cache`` after the state of the layers in ``lost`` is
+    zeroed: every cache leaf within 1e-6 of a fresh prefill's.  The
+    rebuild runs each layer as the prefill does: an SSM layer with its
+    MoE FFN, the attention layer at its 1/128 score scale (in full when
+    it is lost, Q alone against its surviving K/V when only a deeper
+    layer is)."""
+    toks = torch.stack([ids(24, 11), ids(24, 12)])
+    _, fresh = transformer.forward(CFG, params, {"tokens": toks},
+                                   mode="prefill", max_len=48)
+    damaged = _wiped(fresh, lost)
+    has = [i not in lost for i in range(CFG.n_layers)]
+    _, stats = reconstruct_cache(CFG, params, {"tokens": toks}, damaged,
+                                 has, max_len=48)
+    assert stats["full_prefill"] == len(lost)
+    assert stats["kv_reused"] == int(5 not in lost and max(lost) > 5)
+    for kind in ("attn", "ssm"):
+        for leaf, t in fresh[kind].items():
+            diff = float((damaged[kind][leaf] - t).abs().max())
+            assert diff <= 1e-6, (kind, leaf, diff)
+    assert torch.equal(damaged["pos"], fresh["pos"])
+
+
+def test_a_relay_after_a_wipe_decodes_on_as_an_uninterrupted_run(params):
+    """Three live requests on a granite ServingEngine lose layers 3, 5 and
+    7; ``relay_inflight`` rebuilds them for every slot.  The rebuilt slot
+    cache is within 1e-5 of its largest entry of an uninterrupted twin's
+    (whose rows the decode steps wrote, in another sum order), and after
+    decoding on each stream equals the twin's."""
+    prompts = [ids(n, 30 + i).numpy() for i, n in enumerate((14, 9, 14))]
+    lost = {3, 5, 7}
+    engines = []
+    for _ in range(2):
+        eng = ServingEngine(CFG, params, n_slots=3, max_len=64)
+        reqs = [ServeRequest(i, p, 12) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        for _ in range(4):
+            eng.step()
+        assert eng.batcher.n_active == 3
+        engines.append((eng, reqs))
+    (twin, twin_reqs), (eng, reqs) = engines
+    _wipe(eng.batcher.cache, lost)
+    stats = eng.relay_inflight([i not in lost for i in range(CFG.n_layers)])
+    assert stats["relayed_reqs"] == 3
+    for kind in ("attn", "ssm"):
+        for leaf, want in twin.batcher.cache[kind].items():
+            got = eng.batcher.cache[kind][leaf]
+            assert float((got - want).abs().max()) <= 1e-5 * float(
+                want.abs().max()), (kind, leaf)
+    twin.run()
+    eng.run()
+    assert all(len(r.generated) == 12 for r in twin_reqs)
+    assert [r.generated for r in reqs] == [r.generated for r in twin_reqs]

@@ -4,6 +4,7 @@ of the port (nor ``chip_smoke.py``, ``tools/pbcheck_torch.py`` or an
 ``examples/torch_*.py``) names them in an import."""
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -67,3 +68,27 @@ def test_source_imports_neither_jax_nor_reference(path):
             continue
         assert not any(_banned(n) for n in names), \
             f"{path.name}:{node.lineno} imports {names}"
+
+
+# a private name of ``transformer``, or the Mamba-2 block without the rest
+# of its layer, named outside ``models/`` (as an attribute or an import)
+_SEAM = re.compile(r"\btransformer\._|\bmamba2\.ssm_block_(fwd|step)\b"
+                   r"|models\.transformer import [^#]*\b_\w"
+                   r"|models\.mamba2 import [^#]*\bssm_block_(fwd|step)\b")
+
+
+def test_only_models_reach_behind_the_layer_seam():
+    """No module of the port outside ``models/`` names a ``_``-prefixed
+    helper of ``transformer``, ``mamba2.ssm_block_fwd`` or
+    ``mamba2.ssm_block_step``: recovery, the pipeline belt, the dry run
+    and the rest walk the layers through ``transformer.layers`` and run
+    them through ``transformer.layer_fwd``, so a model's layer is written
+    once."""
+    bad = []
+    for path in sorted(PORT.rglob("*.py")):
+        if path.relative_to(PORT).parts[0] == "models":
+            continue
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            if _SEAM.search(line):
+                bad.append(f"{path.relative_to(ROOT)}:{n}: {line.strip()}")
+    assert not bad, "\n".join(bad)

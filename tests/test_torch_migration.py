@@ -24,8 +24,8 @@ from repro.serving import engine as jserve
 from repro.serving.snapshot import KVSnapshot as JSnapshot
 from repro_torch.configs.base import get_arch
 from repro_torch.convert import params_from_jax, to_numpy
-from repro_torch.core.kv_reconstruct import _kind_indices
 from repro_torch.lora import adapters as tlora
+from repro_torch.models import transformer as TT
 from repro_torch.serving import engine as tserve
 from repro_torch.serving.snapshot import KVSnapshot, dtype_name
 
@@ -357,7 +357,7 @@ def test_admit_with_state_respects_epoch_barrier():
 
 def _wipe_layers(batcher, layers):
     """Zero the state of the global layers in ``layers``."""
-    for gi, (kind, ki, ai) in enumerate(_kind_indices(batcher.cfg)):
+    for gi, (kind, ki, ai) in enumerate(TT.layers(batcher.cfg)):
         if gi in layers:
             for a in batcher.cache[kind].values():
                 a[ai if kind == "attn" else ki] = 0

@@ -50,7 +50,7 @@ def _np_cache(jcache):
 def _wipe(cfg, np_cache, missing):
     """Zero the state of the global layers in ``missing``."""
     out = jax.tree.map(np.copy, np_cache)
-    for gi, (kind, ki, ai) in enumerate(trec._kind_indices(cfg)):
+    for gi, (kind, ki, ai) in enumerate(TT.layers(cfg)):
         if gi in missing:
             key = "attn" if ai >= 0 else kind    # moe fills "attn"
             for leaf in out[key]:
@@ -241,5 +241,5 @@ def test_kind_indices_match_reference():
     for arch in ("qwen3-1.7b", "mamba2-780m", "recurrentgemma-2b",
                  "qwen2-moe-a2.7b"):
         cfg = get_arch(arch).reduced(n_layers=6)
-        assert trec._kind_indices(cfg) == jrec._kind_indices(
+        assert TT.layers(cfg) == jrec._kind_indices(
             jget_arch(arch).reduced(n_layers=6))
